@@ -1,0 +1,92 @@
+"""NoirProofScheme: the compiled artifact (circuit + R1CS + witness program).
+
+Port of ``provekit_tpu/compiler/scheme.py`` (reference
+``provekit/common/src/noir_proof_scheme.rs`` and the prove flow of
+``provekit/prover/src/noir_proof_scheme.rs``): a separate witness sponge
+("📜") absorbs the circuit shape and public inputs and supplies the
+challenges drawn during witness solving; the main proof then runs the
+WhirR1CSScheme over the solved witness on the scheme's device.  The witness
+solve is the Python ``witness_builder.solve`` on the host.
+"""
+
+from __future__ import annotations
+
+import secrets
+from dataclasses import dataclass
+
+from ..acir import model as acir
+from ..fields import bn254 as F
+from ..fs import DomainSeparator
+from ..protocol import WhirR1CSScheme
+from ..r1cs import R1CS
+from ..r1cs import witness_builder as wb
+from .noir_to_r1cs import noir_to_r1cs
+
+
+@dataclass
+class NoirProof:
+    transcript: bytes
+
+
+@dataclass
+class NoirProofScheme:
+    program: acir.Program
+    r1cs: R1CS
+    acir_map: dict[int, int]
+    witness_builders: list
+    whir_for_witness: WhirR1CSScheme
+
+    @classmethod
+    def from_program(cls, program: acir.Program, security_level: int = 128,
+                     max_pow_bits: int | None = None, *,
+                     device) -> "NoirProofScheme":
+        assert len(program.functions) == 1, "only one ACIR function supported"
+        circuit = program.functions[0]
+        r1cs, acir_map, builders = noir_to_r1cs(circuit)
+        scheme = WhirR1CSScheme.new_for_r1cs(
+            r1cs, security_level=security_level, max_pow_bits=max_pow_bits,
+            device=device)
+        return cls(program=program, r1cs=r1cs, acir_map=acir_map,
+                   witness_builders=builders, whir_for_witness=scheme)
+
+    @property
+    def circuit(self) -> acir.Circuit:
+        return self.program.functions[0]
+
+    # -- witness sponge ----------------------------------------------------
+
+    def create_witness_io_pattern(self) -> DomainSeparator:
+        ds = DomainSeparator("📜")
+        ds.absorb(2, "shape")
+        n_pub = len(self.circuit.public_inputs())
+        if n_pub:
+            ds.absorb(n_pub, "public_inputs")
+        for _ in range(wb.num_challenges(self.witness_builders)):
+            ds.squeeze(1, "logup_challenge")
+        return ds
+
+    def _seed_witness_sponge(self, tr, acir_values: dict[int, int]) -> None:
+        tr.add_scalars([self.r1cs.num_constraints % F.P,
+                        self.r1cs.num_witnesses % F.P])
+        pub = self.circuit.public_inputs()
+        if pub:
+            tr.add_scalars([acir_values[i] % F.P for i in pub])
+
+    # -- solve / prove / verify -------------------------------------------
+
+    def solve_witness(self, acir_values: dict[int, int],
+                      rng=None) -> list[int]:
+        tr = self.create_witness_io_pattern().to_prover_state()
+        self._seed_witness_sponge(tr, acir_values)
+        partial = wb.solve(self.witness_builders, acir_values,
+                           self.r1cs.num_witnesses, tr)
+        rng = rng if rng is not None else secrets.SystemRandom()
+        return wb.fill_witness(partial, rng)
+
+    def prove(self, acir_values: dict[int, int], rng=None) -> NoirProof:
+        witness = self.solve_witness(acir_values, rng)
+        transcript = self.whir_for_witness.prove(self.r1cs, witness, rng)
+        return NoirProof(transcript=transcript)
+
+    def verify(self, proof: NoirProof) -> None:
+        self.whir_for_witness.verify(self.r1cs, proof.transcript)

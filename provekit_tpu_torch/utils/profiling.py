@@ -1,0 +1,45 @@
+"""Span tree: wall time per named pipeline stage.
+
+Port of the ``span`` part of ``provekit_tpu/utils/profiling.py``.  Device
+work is asynchronous, so a span measures dispatch time unless the tree is
+given a ``sync`` callable (for instance ``torch.cuda.synchronize``), which
+then runs at every span exit so that each span holds its own device time.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+
+@dataclass
+class Span:
+    name: str
+    start: float = 0.0
+    elapsed: float = 0.0
+    children: list = field(default_factory=list)
+
+
+class SpanTree:
+    def __init__(self, sync=None):
+        self.root = Span("root")
+        self.stack = [self.root]
+        self.sync = sync
+
+    @contextmanager
+    def span(self, name: str):
+        s = Span(name, start=time.perf_counter())
+        self.stack[-1].children.append(s)
+        self.stack.append(s)
+        try:
+            yield s
+        finally:
+            if self.sync is not None:
+                self.sync()
+            s.elapsed = time.perf_counter() - s.start
+            self.stack.pop()
+
+
+GLOBAL = SpanTree()
+span = GLOBAL.span

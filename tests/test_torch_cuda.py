@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+These tests need an NVIDIA card and skip without one.  The card's machine
+has no JAX, so run them there without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import hashlib
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from provekit_tpu_torch.fields import bn254 as F
+from provekit_tpu_torch.fields import vector as V
+from provekit_tpu_torch.hash import skyscraper as S
+from provekit_tpu_torch.ops import ntt
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def canonical(n: int, seed: int, device) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
+    d[15] = rng.integers(0, 0x3064, size=n)
+    return torch.from_numpy(d.astype(np.int32)).to(device)
+
+
+def test_mont_mul_kernel(cuda):
+    a, b = canonical(4096, 1, cuda), canonical(4096, 2, cuda)
+    a[:, :4] = V.pack([0, 1, F.P - 1, F.R], cuda)
+    before = V.mont_mul.launches
+    assert torch.equal(V.mont_mul(a, b), V.mont_mul_plain(a, b))
+    assert torch.equal(V.mont_mul(a, b[:, 3:4]), V.mont_mul_plain(a, b[:, 3:4]))
+    assert torch.equal(V.mont_mul(a[:, 0::2], b[:, 1::2]),
+                       V.mont_mul_plain(a[:, 0::2], b[:, 1::2]))
+    assert V.mont_mul.launches == before + 3
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 256, 1024])
+def test_ntt_stage_kernel(cuda, chunk):
+    x = canonical(4096, chunk, cuda)
+    tw = ntt._twiddle_table((4096 // chunk).bit_length() - 1, False, cuda)
+    for s in range(min(3, (4096 // chunk).bit_length() - 1)):
+        assert torch.equal(ntt.ntt_stage(x, tw, s, chunk),
+                           ntt.ntt_stage_plain(x, tw, s, chunk))
+
+
+def test_rs_encode_kernel_path(cuda):
+    coeffs = canonical(1 << 12, 7, cuda)
+    assert torch.equal(ntt.rs_encode(coeffs, 14),
+                       ntt.rs_encode(coeffs, 14, plain=True))
+
+
+def test_skyscraper_kernels(cuda):
+    l, r = canonical(512, 3, cuda), canonical(512, 4, cuda)
+    assert torch.equal(S.compress_v(l, r), S.compress_plain(l, r))
+    assert torch.equal(S.compress_v(l[:, :1], r), S.compress_plain(l[:, :1], r))
+    got = S.permute_v(l[:, :1], r[:, :1])
+    want = S.permute_plain(l[:, :1], r[:, :1])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    lv, rv = V.unpack(l[:, :1])[0], V.unpack(r[:, :1])[0]
+    assert (V.unpack(got[0])[0], V.unpack(got[1])[0]) == S.permute(lv, rv)
+
+
+def test_tiny_digest_on_card(cuda):
+    from provekit_tpu_torch.protocol import WhirR1CSScheme
+    from provekit_tpu_torch.r1cs import R1CS
+    from provekit_tpu_torch.whir.parameters import WhirConfig
+    rng = random.Random(3)
+    r = R1CS()
+    x0 = r.new_witness()
+    vals = {0: 1, x0: rng.randrange(F.P)}
+    sq = r.new_witness()
+    r.add_constraint([(1, x0)], [(1, x0)], [(1, sq)])
+    vals[sq] = vals[x0] * vals[x0] % F.P
+    nxt = r.new_witness()
+    r.add_constraint([(1, sq), (1, x0)], [(1, 0)], [(1, nxt)])
+    vals[nxt] = (vals[sq] + vals[x0]) % F.P
+    cfg = dict(batch_size=2, security_level=3, max_pow_bits=2,
+               folding_factor=2)
+    scheme = WhirR1CSScheme(
+        m=3, m_0=1, a_num_terms=2,
+        whir_witness=WhirConfig(num_variables=3, **cfg),
+        whir_for_hiding_spartan=WhirConfig(num_variables=3, **cfg),
+        security_level=3, max_pow_bits=2, device=cuda)
+    proof = scheme.prove(r, [vals[i] for i in range(4)],
+                         rng=random.Random(11))
+    assert hashlib.sha256(proof).hexdigest() == (
+        "efa6851f51a1090ab1139f427a9a67daa4b2c16037937f0e853bb8db0c5cbfb0")
+    scheme.verify(r, proof)

@@ -1,0 +1,37 @@
+"""The torch port imports with JAX blocked and never imports provekit_tpu."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "provekit_tpu_torch"
+
+_CHILD = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import provekit_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    provekit_tpu_torch.__path__, "provekit_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules
+       if m == "provekit_tpu" or m.startswith("provekit_tpu.")]
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30
+
+
+def test_port_sources_name_no_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|provekit_tpu)\b", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert not offenders, offenders
