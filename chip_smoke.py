@@ -5,36 +5,56 @@
 
 Phases, one or more lines each:
   1. card and toolchain (nvidia-smi name and power limit, torch, CUDA, nvcc);
-  2. build of the CUDA kernels from provekit_tpu_torch/csrc, with its time;
-  3. each kernel against its plain torch version on the card at the main
-     path's shapes: exact equality, and both times (CUDA events, median);
-  4. the tiny scheme on the card: pinned proof digest, verify, tamper;
-  5. the main path, poseidon2 x1000 at security 128, through the port's
-     entry points: build, from_program, solve_witness, a warm-up prove, a
-     timed prove (its five spans, each kernel's launch count and the peak
-     device memory), one more prove under torch.profiler (device busy
+  2. build of the CUDA kernels from provekit_tpu_torch/csrc (one nvcc per
+     source, in parallel), with its time;
+  3. each kernel against its plain torch version on the card at the shapes
+     its path gives it: exact equality, both times (CUDA events, median) and
+     the kernel's bound.  The butterfly runs at the sha256 x100 path's shape
+     (16, 2^25), beside the fused stage on the same stage, and the whole
+     2^24 -> 2^25 Reed-Solomon encoding runs with the kernels; mont_mul and
+     compress run at the largest leaf shapes of that path's commitment; the
+     tensor-core Montgomery product runs at 2^21 beside the CIOS kernel;
+  4. the tensor-core Montgomery experiment (experiments/mxu_mont.py);
+  5. the tiny scheme on the card: pinned proof digest, verify, tamper;
+  6. poseidon2 x1000 at security 128 through the port's entry points:
+     build, from_program, solve_witness, a warm-up prove, a timed prove (its
+     five spans, each kernel's launch count and the peak device memory),
+     one more prove under torch.profiler (device busy
      share; the kernel table goes to chiprun_out/chip_smoke_profile.txt),
-     verify, and a flipped byte rejected.
-The line before the last is the kernel JSON; the last line is
-{"ok": true, "device": {...}}.  Any failure exits non-zero before it.  The
-script needs a CUDA card and the repository beside it; it imports no JAX.
+     verify, and a flipped byte rejected;
+  7. sha256 x100 (RS domain 2^25) at security 128, the same stages without
+     the profiled prove, with a progress line per stage.
+The line before the last is the kernel JSON, the one before it the card's
+name and power limit; the last line is {"ok": true, "device": {...}}.  Any
+failure exits non-zero before them.  The script needs a CUDA card and the
+repository beside it; it imports no JAX.
 """
 
 import hashlib
 import json
 import random
-import statistics
 import subprocess
 import sys
 import time
 
 TINY_DIGEST = "efa6851f51a1090ab1139f427a9a67daa4b2c16037937f0e853bb8db0c5cbfb0"
-TPU_KERNEL = "provekit_tpu/ops/pallas_kernels.py"
+TPU_KERNELS = "provekit_tpu/ops/pallas_kernels.py"
 SEED = 20261016
+T0 = time.perf_counter()
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's published figures): HBM
+# bytes/s, int8 tensor-core operations/s, and the CUDA cores' float32 rate,
+# taken as the peak for 32-bit integer multiply-adds (two operations each),
+# for which no figure is published.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"int8_tensor": 1979e12, "cuda_core": 67e12}
+# 32-bit multiply-adds of one CIOS Montgomery product on 8 limbs
+MONT_MULADDS = 8 * 8 + 8 * 8 + 8
+PLANE_BYTES = 64  # one field element: 16 digit planes of int32
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -42,19 +62,14 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Median milliseconds of fn() over reps runs, timed with CUDA events."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def bound(nbytes: float, ops: dict) -> tuple[float, str]:
+    """(least ms, what bounds it) for moving ``nbytes`` and doing ``ops``
+    (operations by unit) at the card's peak rates."""
+    times = {"bytes": nbytes / HBM_BYTES_S * 1e3}
+    for unit, count in ops.items():
+        times[f"operations ({unit})"] = count / PEAK_OPS_S[unit] * 1e3
+    by = max(times, key=times.get)
+    return times[by], "bytes" if by == "bytes" else "operations"
 
 
 def random_planes(torch, rng, n: int, device):
@@ -86,71 +101,129 @@ def phase_toolchain(torch):
 def phase_build():
     from provekit_tpu_torch import kernels as K
     t0 = time.perf_counter()
-    path = K.build()
+    paths = K.build()
     K.lib()
-    log(f"[2] kernels built in {time.perf_counter() - t0:.3f} s -> "
-        f"{path.name}")
+    log(f"[2] {len(paths)} kernel libraries built in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+class Rows:
+    """The kernel table of phase 3: one row per kernel, checked as added."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rows = {}
+
+    def check(self, name, shape, got, want, ms=None, plain_ms=None,
+              nbytes=None, ops=None, **row):
+        self.torch.cuda.synchronize()
+        err = max_abs_err(self.torch, got, want)
+        line = f"[3] {name} {shape}: equal={err == 0}"
+        if ms is not None:
+            line += f" kernel {ms:.4f} ms"
+        if plain_ms is not None:
+            line += f", plain {plain_ms:.4f} ms"
+        if nbytes is not None:
+            bound_ms, bound_by = bound(nbytes, ops)
+            line += f", bound {bound_ms:.4f} ms ({bound_by})"
+            row.update(bound_ms=bound_ms, bound_by=bound_by)
+        log(line)
+        if err:
+            fail(f"{name} {shape} disagrees with its plain version")
+        if row:
+            self.rows[name] = dict(row, max_abs_err=err, ms=ms,
+                                   plain_ms=plain_ms, shape=shape)
+        return err
 
 
 def phase_kernels(torch, dev):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the shapes of its path."""
     import numpy as np
+    from provekit_tpu_torch.experiments import mxu_mont as M
     from provekit_tpu_torch.fields import vector as V
     from provekit_tpu_torch.hash import skyscraper as S
     from provekit_tpu_torch.ops import ntt
+    from provekit_tpu_torch.utils.profiling import cuda_ms
 
     rng = np.random.default_rng(SEED)
-    rows = {}
+    rows = Rows(torch)
+    mont_ops = {"cuda_core": 2 * MONT_MULADDS}
 
-    def check(name, shape, got, want, ms, plain_ms):
+    def timed_once(fn):
+        """(result, ms) of one run of a slow plain version."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
         torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        log(f"[3] {name} {shape}: equal={err == 0} kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-        if err:
-            fail(f"{name} {shape} disagrees with its plain version")
-        return err
+        return out, start.elapsed_time(end)
 
     n = 1 << 21
     a = random_planes(torch, rng, n, dev)
     b = random_planes(torch, rng, n, dev)
-    err = check("mont_mul", f"n=2^21", V.mont_mul(a, b),
-                V.mont_mul_plain(a, b),
-                ms := cuda_ms(torch, lambda: V.mont_mul(a, b), 20),
-                pms := cuda_ms(torch, lambda: V.mont_mul_plain(a, b), 3))
-    rows["mont_mul"] = ("mont_mul.cu", 74, err, ms, pms, "n=2^21")
+    rows.check("mont_mul", "n=2^21", V.mont_mul(a, b), V.mont_mul_plain(a, b),
+               cuda_ms(lambda: V.mont_mul(a, b), 20),
+               cuda_ms(lambda: V.mont_mul_plain(a, b), 3),
+               nbytes=3 * PLANE_BYTES * n,
+               ops={u: n * c for u, c in mont_ops.items()},
+               source="mont_mul.cu", replaces=f"{TPU_KERNELS}:74")
 
     for chunk in (1, 1024, 2048):
         tw = ntt._twiddle_table((n // chunk).bit_length() - 1, False, dev)
         s = 1
-        err = check("ntt_stage", f"n=2^21 chunk={chunk} s={s}",
-                    ntt.ntt_stage(a, tw, s, chunk),
-                    ntt.ntt_stage_plain(a, tw, s, chunk),
-                    ms := cuda_ms(torch,
-                                  lambda: ntt.ntt_stage(a, tw, s, chunk), 20),
-                    pms := cuda_ms(torch, lambda: ntt.ntt_stage_plain(
-                        a, tw, s, chunk), 3))
+        extra = {}
         if chunk == 1024:
-            rows["ntt_stage"] = ("ntt_stage.cu", 174, err, ms, pms,
-                                 f"n=2^21 chunk={chunk}")
+            steps = n // (2 * chunk)
+            extra = dict(nbytes=2 * PLANE_BYTES * n
+                         + PLANE_BYTES * (((steps - 1) >> s) + 1),
+                         ops={u: n // 2 * c for u, c in mont_ops.items()},
+                         source="ntt_stage.cu",
+                         replaces=f"{TPU_KERNELS}:174")
+        rows.check("ntt_stage", f"n=2^21 chunk={chunk} s={s}",
+                   ntt.ntt_stage(a, tw, s, chunk),
+                   ntt.ntt_stage_plain(a, tw, s, chunk),
+                   cuda_ms(lambda: ntt.ntt_stage(a, tw, s, chunk), 20),
+                   cuda_ms(lambda: ntt.ntt_stage_plain(a, tw, s, chunk), 3),
+                   **extra)
     coeffs = a[:, :n // 2].contiguous()
-    check("rs_encode", "2^20 -> 2^21", ntt.rs_encode(coeffs, 21),
-          ntt.rs_encode(coeffs, 21, plain=True),
-          cuda_ms(torch, lambda: ntt.rs_encode(coeffs, 21), 10),
-          cuda_ms(torch, lambda: ntt.rs_encode(coeffs, 21, plain=True), 3))
+    rows.check("rs_encode", "2^20 -> 2^21", ntt.rs_encode(coeffs, 21),
+               ntt.rs_encode(coeffs, 21, plain=True),
+               cuda_ms(lambda: ntt.rs_encode(coeffs, 21), 10),
+               cuda_ms(lambda: ntt.rs_encode(coeffs, 21, plain=True), 3))
+
+    # the tensor-core Montgomery product at K1's shape, beside K1
+    rows.check("mont_mul_mma", "n=2^21 against mont_mul_plain",
+               M.mont_mul_mma(a, b), V.mont_mul_plain(a, b))
+    got = M.mont_mul_mma(a, b)
+    want, plain_ms = timed_once(lambda: M.mont_mul_mma_plain(a, b))
+    rows.check("mont_mul_mma", "n=2^21", got, want,
+               cuda_ms(lambda: M.mont_mul_mma(a, b), 20), plain_ms,
+               nbytes=3 * PLANE_BYTES * n,
+               ops={"int8_tensor": n * 2 * (32 + 64) * 32,
+                    "cuda_core": n * 2 * 64},
+               source="mont_mul_mma.cu",
+               replaces="scripts/mxu_mont_experiment.py:244")
+    log(f"[3] mont_mul_mma beside mont_mul at n=2^21: "
+        f"{rows.rows['mont_mul_mma']['ms']:.4f} ms against "
+        f"{rows.rows['mont_mul']['ms']:.4f} ms")
 
     for logn in (17, 20):
-        l, r = a[:, :1 << logn], b[:, :1 << logn]
-        err = check("compress", f"n=2^{logn}", S.compress_v(l, r),
-                    S.compress_plain(l, r),
-                    ms := cuda_ms(torch, lambda: S.compress_v(l, r), 10),
-                    pms := cuda_ms(torch, lambda: S.compress_plain(l, r), 3))
+        m = 1 << logn
+        l, r = a[:, :m], b[:, :m]
+        extra = {}
         if logn == 20:
-            rows["compress"] = ("skyscraper.cu", 233, err, ms, pms,
-                                f"n=2^{logn}")
+            extra = dict(nbytes=3 * PLANE_BYTES * m,
+                         ops={"cuda_core": m * 14 * 2 * MONT_MULADDS},
+                         source="skyscraper.cu",
+                         replaces=f"{TPU_KERNELS}:233")
+        rows.check("compress", f"n=2^{logn}", S.compress_v(l, r),
+                   S.compress_plain(l, r),
+                   cuda_ms(lambda: S.compress_v(l, r), 10),
+                   cuda_ms(lambda: S.compress_plain(l, r), 3), **extra)
 
-    # the sponge's serial chain: 1,000 dependent n = 1 permutations
-    calls = 1000
+    # the sponge's serial chain: dependent n = 1 permutations
+    calls = 200
 
     def chain(fn):
         l, r = a[:, :1], b[:, :1]
@@ -158,13 +231,119 @@ def phase_kernels(torch, dev):
             l, r = fn(l, r)
         return torch.cat([l, r], dim=1)
 
-    err = check("permute", f"{calls} sequential n=1 calls",
-                chain(S.permute_v), chain(S.permute_plain),
-                ms := cuda_ms(torch, lambda: chain(S.permute_v), 3) / calls,
-                pms := cuda_ms(torch, lambda: chain(S.permute_plain), 1)
-                / calls)
-    rows["permute"] = ("skyscraper.cu", 297, err, ms, pms, "n=1, per call")
-    return rows
+    want, plain_ms = timed_once(lambda: chain(S.permute_plain))
+    rows.check("permute", f"{calls} sequential n=1 calls, per call",
+               chain(S.permute_v), want,
+               cuda_ms(lambda: chain(S.permute_v), 3) / calls,
+               plain_ms / calls, nbytes=4 * PLANE_BYTES,
+               ops={"cuda_core": 14 * 2 * MONT_MULADDS},
+               source="skyscraper.cu", replaces=f"{TPU_KERNELS}:297")
+    del a, b, coeffs
+
+    # the butterfly at the sha256 x100 path's second-pass stages: (16, 2^25),
+    # chunk 8192 (n1 = 2^13), half 2^24; and the fused stage on the same
+    # stages for comparison
+    n = 1 << 25
+    chunk = 1 << 13
+    x = random_planes(torch, rng, n, dev)
+    tw = ntt._twiddle_table(12, False, dev)
+    steps = n // 2 // chunk
+    for s in (0, 11):
+        want, plain_ms = timed_once(
+            lambda: ntt.ntt_stage_plain(x, tw, s, chunk))
+        extra = {}
+        if s == 0:
+            extra = dict(nbytes=2 * PLANE_BYTES * n
+                         + PLANE_BYTES * (((steps - 1) >> s) + 1),
+                         ops={u: n // 2 * c for u, c in mont_ops.items()},
+                         source="ntt_stage.cu",
+                         replaces=f"{TPU_KERNELS}:113")
+        rows.check("butterfly", f"n=2^25 chunk=8192 s={s}",
+                   ntt.butterfly(x, tw, s, chunk), want,
+                   cuda_ms(lambda: ntt.butterfly(x, tw, s, chunk), 10),
+                   plain_ms, **extra)
+        del want
+        rows.check("ntt_stage", f"n=2^25 chunk=8192 s={s}",
+                   ntt.ntt_stage(x, tw, s, chunk),
+                   ntt.butterfly(x, tw, s, chunk))
+        log(f"[3] butterfly beside ntt_stage on that stage: "
+            f"{cuda_ms(lambda: ntt.butterfly(x, tw, s, chunk), 10):.4f} ms "
+            f"against {cuda_ms(lambda: ntt.ntt_stage(x, tw, s, chunk), 10):.4f}"
+            f" ms")
+    phase_leaves(torch, rng, rows, dev)
+    coeffs = x[:, :n // 2].contiguous()
+    del x
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    table = ntt._cross_twiddles(25, 13, False, dev)
+    build_gib = (torch.cuda.max_memory_allocated(dev) - before) / 2**30
+    log(f"[3] cross-twiddle table of 2^25: {table.numel() * 4 / 2**30:.3f} "
+        f"GiB cached, {build_gib:.3f} GiB at the peak of its build")
+    del table
+    want, plain_ms = timed_once(lambda: ntt.rs_encode(coeffs, 25, plain=True))
+    rows.check("rs_encode", "2^24 -> 2^25", ntt.rs_encode(coeffs, 25), want,
+               cuda_ms(lambda: ntt.rs_encode(coeffs, 25), 3), plain_ms)
+    del coeffs, want
+    # drop the 2^25 twiddle tables (2 GiB of cross twiddles) so that the
+    # paths' peak memory counts only what each prove holds
+    for cached in (ntt._twiddle_table, ntt._cross_twiddles):
+        cached.cache_clear()
+    torch.cuda.empty_cache()
+    return rows.rows
+
+
+def phase_leaves(torch, rng, rows, dev):
+    """mont_mul and compress at the largest shapes of the sha256 x100 path:
+    its first commitment's ``from_mont`` of the (16, 2 * 16, 2^21) leaves
+    (2^26 elements times a broadcast constant), the first fold of
+    ``merkle.hash_leaves`` on two strided leaf rows, and the tree's first
+    level on column-strided halves."""
+    from provekit_tpu_torch.fields import vector as V
+    from provekit_tpu_torch.hash import skyscraper as S
+    from provekit_tpu_torch.utils.profiling import cuda_ms
+    from provekit_tpu_torch.whir.parameters import WhirConfig
+    # the witness commitment of sha256 x100: m = 24, two polynomials
+    cfg = WhirConfig(num_variables=24, batch_size=2, security_level=128)
+    batch, fold = 2, 1 << cfg.initial_folding_factor
+    n_leaves = (1 << cfg.starting_log_domain) // fold
+    cols = batch * fold * n_leaves
+    shape = f"(16, {batch * fold}, 2^{n_leaves.bit_length() - 1})"
+    enc = random_planes(torch, rng, cols, dev).reshape(16, batch * fold,
+                                                       n_leaves)
+    one = V.const(1, dev)
+    got = V.from_mont(enc)
+    piece = 1 << 21
+    flat = enc.reshape(16, cols)
+    want = torch.cat([V.mont_mul_plain(flat[:, i:i + piece], one)
+                      for i in range(0, cols, piece)], dim=1)
+    rows.check("mont_mul", f"from_mont of {shape} leaves",
+               got.reshape(16, cols), want,
+               cuda_ms(lambda: V.from_mont(enc), 3), None)
+    del enc, flat, want
+    leaves = got
+    l, r = leaves[:, 0, :], leaves[:, 1, :]
+    rows.check("compress", f"hash_leaves fold, {shape} rows 0 and 1",
+               S.compress_v(l, r), S.compress_plain(l, r),
+               cuda_ms(lambda: S.compress_v(l, r), 3), None)
+    level = S.compress_v(l, r)
+    del leaves, got, l, r
+    l, r = level[:, 0::2], level[:, 1::2]
+    rows.check("compress", f"tree level, (16, 2^{n_leaves.bit_length() - 1})"
+               "[:, 0::2] and [:, 1::2]",
+               S.compress_v(l, r), S.compress_plain(l, r),
+               cuda_ms(lambda: S.compress_v(l, r), 3), None)
+
+
+def phase_mxu(torch, dev):
+    """experiments/mxu_mont.py: exactness and both kernels' times."""
+    from provekit_tpu_torch.experiments import mxu_mont as M
+    M.mont_mul_mma.launches = 0
+    out = M.run(dev)
+    launches = M.mont_mul_mma.launches
+    log(f"[4] mxu_mont experiment: {json.dumps(out)}")
+    if not all(out["checks"].values()):
+        fail(f"tensor-core experiment checks failed: {out['checks']}")
+    return launches
 
 
 def build_tiny_system(seed: int, n_mults: int):
@@ -229,7 +408,7 @@ def phase_tiny(dev):
     scheme.verify(r1cs, proof)
     expect_rejected(scheme, r1cs, proof,
                     [8, len(proof) // 2, len(proof) - 33])
-    log(f"[4] tiny scheme on {dev}: digest {digest[:16]}... matches, "
+    log(f"[5] tiny scheme on {dev}: digest {digest[:16]}... matches, "
         f"verify ok, 3 flipped bytes rejected (prove {prove_s:.3f} s)")
 
 
@@ -238,7 +417,7 @@ def reset_counts(counters) -> None:
         fn.launches = 0
 
 
-def profile_prove(torch, whir, r1cs, witness, path) -> None:
+def profile_prove(torch, whir, r1cs, witness, path, tag) -> None:
     """One more prove under torch.profiler: kernel table + device busy share
     (summed kernel time over the prove's wall time) written to ``path``."""
     from torch.profiler import ProfilerActivity, profile
@@ -260,67 +439,69 @@ def profile_prove(torch, whir, r1cs, witness, path) -> None:
     path.write_text(summary + "\n\n" + events.table(
         sort_by="self_cuda_time_total", row_limit=40) + "\n\n" + events.table(
         sort_by="self_cpu_time_total", row_limit=25))
-    log(f"[5] {summary} -> {path}")
+    log(f"{tag} {summary} -> {path}")
 
 
-def phase_main(torch, dev, counters, profile_to):
-    from provekit_tpu_torch.circuits import poseidon
+def prove_path(torch, dev, tag, name, build, counters, expect, profile_to):
+    """One circuit through the port's entry points: build, from_program,
+    solve_witness, a warm-up prove, a timed prove with the launch counts of
+    ``counters`` (each name in ``expect`` must launch), optionally a
+    profiled prove, verify and a flipped byte.  Returns the launch counts."""
     from provekit_tpu_torch.compiler import NoirProofScheme
     from provekit_tpu_torch.utils import profiling
 
     stages = {}
-    t0 = time.perf_counter()
-    program, acir_values, _ = poseidon.hash_chain_circuit(1000)
-    stages["circuit_build"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    scheme = NoirProofScheme.from_program(program, security_level=128,
-                                          device=dev)
-    stages["from_program"] = time.perf_counter() - t0
+
+    def stage(label, fn):
+        log(f"{tag} {name}: {label} ...")
+        t0 = time.perf_counter()
+        out = fn()
+        stages[label] = time.perf_counter() - t0
+        log(f"{tag} {name}: {label} done in {stages[label]:.3f} s")
+        return out
+
+    program, acir_values, _ = stage("circuit_build", build)
+    scheme = stage("from_program", lambda: NoirProofScheme.from_program(
+        program, security_level=128, device=dev))
     r1cs = scheme.r1cs
-    rng = random.Random(1)
-    t0 = time.perf_counter()
-    witness = scheme.solve_witness(acir_values, rng=rng)
-    stages["solve_witness"] = time.perf_counter() - t0
     whir = scheme.whir_for_witness
-    log(f"[5] poseidon2 x1000: {r1cs.num_constraints} constraints, "
-        f"{r1cs.num_witnesses} witnesses, m={whir.m} m_0={whir.m_0}")
+    log(f"{tag} {name}: {r1cs.num_constraints} constraints, "
+        f"{r1cs.num_witnesses} witnesses, m={whir.m} m_0={whir.m_0}, "
+        f"RS domain 2^{whir.whir_witness.starting_log_domain}")
+    rng = random.Random(1)
+    witness = stage("solve_witness",
+                    lambda: scheme.solve_witness(acir_values, rng=rng))
 
-    t0 = time.perf_counter()
-    whir.prove(r1cs, witness, rng=rng)
-    torch.cuda.synchronize()
-    stages["warmup_prove"] = time.perf_counter() - t0
+    def prove():
+        proof = whir.prove(r1cs, witness, rng=rng)
+        torch.cuda.synchronize()
+        return proof
 
+    stage("warmup_prove", prove)
     profiling.GLOBAL.sync = torch.cuda.synchronize
     mark = len(profiling.GLOBAL.root.children)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts(counters)
-    t0 = time.perf_counter()
-    proof = whir.prove(r1cs, witness, rng=rng)
-    torch.cuda.synchronize()
-    stages["prove"] = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    proof = stage("prove", prove)
+    launches = {k: fn.launches for k, fn in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     spans = {s.name: s.elapsed for s in profiling.GLOBAL.root.children[mark:]}
     profiling.GLOBAL.sync = None
+    for label, sec in spans.items():
+        log(f"{tag} {name}: prove span {label}: {sec:.3f} s")
+    log(f"{tag} {name}: proof {len(proof)} bytes, sha256 "
+        f"{hashlib.sha256(proof).hexdigest()}; launches during the timed "
+        f"prove: {launches}; peak device memory {peak_gib:.3f} GiB")
 
-    profile_prove(torch, whir, r1cs, witness, profile_to)
-
-    t0 = time.perf_counter()
-    whir.verify(r1cs, proof)
-    stages["verify"] = time.perf_counter() - t0
+    if profile_to is not None:
+        profile_prove(torch, whir, r1cs, witness, profile_to, tag)
+    stage("verify", lambda: whir.verify(r1cs, proof))
     expect_rejected(whir, r1cs, proof, [len(proof) // 2])
-
-    for name, sec in stages.items():
-        log(f"[5] stage {name}: {sec:.3f} s")
-    for name, sec in spans.items():
-        log(f"[5] prove span {name}: {sec:.3f} s")
-    log(f"[5] proof {len(proof)} bytes, sha256 "
-        f"{hashlib.sha256(proof).hexdigest()}, verify ok, flipped byte "
-        f"rejected; launches during the timed prove: {launches}; peak "
-        f"device memory {peak_gib:.3f} GiB")
-    missing = [k for k, v in launches.items() if v <= 0]
+    log(f"{tag} {name}: verify ok, flipped byte rejected; stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
+    missing = [k for k in expect if launches[k] <= 0]
     if missing:
-        fail(f"kernels not launched by the main path: {missing}")
+        fail(f"kernels not launched by the {name} path: {missing}")
     return launches
 
 
@@ -330,28 +511,48 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke run needs a "
              "CUDA card")
+    from provekit_tpu_torch.circuits import poseidon, sha256
     from provekit_tpu_torch.fields import vector as V
     from provekit_tpu_torch.hash import skyscraper as S
     from provekit_tpu_torch.ops import ntt
 
     dev = torch.device("cuda", 0)
     counters = {"mont_mul": V.mont_mul, "ntt_stage": ntt.ntt_stage,
-                "compress": S.compress_v, "permute": S.permute_v}
+                "butterfly": ntt.butterfly, "compress": S.compress_v,
+                "permute": S.permute_v}
     card = phase_toolchain(torch)
     phase_build()
     rows = phase_kernels(torch, dev)
+    mxu_launches = phase_mxu(torch, dev)
     phase_tiny(dev)
     profile_to = (Path(__file__).resolve().parent / "chiprun_out"
                   / "chip_smoke_profile.txt")
-    launches = phase_main(torch, dev, counters, profile_to)
+    by_path = {}
+    by_path["poseidon2_x1000"] = prove_path(
+        torch, dev, "[6]", "poseidon2 x1000",
+        lambda: poseidon.hash_chain_circuit(1000), counters,
+        ["mont_mul", "ntt_stage", "compress", "permute"], profile_to)
+    by_path["sha256_x100"] = prove_path(
+        torch, dev, "[7]", "sha256 x100",
+        lambda: sha256.chain_circuit(100), counters,
+        ["mont_mul", "ntt_stage", "butterfly", "compress", "permute"], None)
 
     kernels = []
-    for name, (src, line, err, ms, pms, shape) in rows.items():
+    for name, row in rows.items():
+        if name == "mont_mul_mma":
+            launches, per_path = mxu_launches, {"mxu_mont": mxu_launches}
+        else:
+            per_path = {p: c[name] for p, c in by_path.items()}
+            path = "sha256_x100" if name == "butterfly" else "poseidon2_x1000"
+            launches = per_path[path]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"provekit_tpu_torch/csrc/{src}",
-            "replaces": f"{TPU_KERNEL}:{line}", "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": pms, "shape": shape})
+            "source": f"provekit_tpu_torch/csrc/{row['source']}",
+            "replaces": row["replaces"], "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "shape": row["shape"], "launches_by_path": per_path})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,3 @@
-from . import poseidon
+from . import poseidon, sha256
 
-__all__ = ["poseidon"]
+__all__ = ["poseidon", "sha256"]

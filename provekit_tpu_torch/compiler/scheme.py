@@ -5,8 +5,9 @@ Port of ``provekit_tpu/compiler/scheme.py`` (reference
 ``provekit/prover/src/noir_proof_scheme.rs``): a separate witness sponge
 ("📜") absorbs the circuit shape and public inputs and supplies the
 challenges drawn during witness solving; the main proof then runs the
-WhirR1CSScheme over the solved witness on the scheme's device.  The witness
-solve is the Python ``witness_builder.solve`` on the host.
+WhirR1CSScheme over the solved witness on the scheme's device (the card
+unless the caller passes ``device="cpu"``).  The witness solve is the Python
+``witness_builder.solve`` on the host.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ class NoirProofScheme:
     @classmethod
     def from_program(cls, program: acir.Program, security_level: int = 128,
                      max_pow_bits: int | None = None, *,
-                     device) -> "NoirProofScheme":
+                     device="cuda") -> "NoirProofScheme":
         assert len(program.functions) == 1, "only one ACIR function supported"
         circuit = program.functions[0]
         r1cs, acir_map, builders = noir_to_r1cs(circuit)

@@ -1,13 +1,14 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, at first use, into ``build/provekit_tpu_torch/`` at the root of
-the checkout; the file name carries a hash of the sources and flags, so an
-edited source is rebuilt.  The library is loaded with ``ctypes``: every
-pointer and the stream pass as ``c_void_p``, every C entry point returns
-``cudaGetLastError()`` after its launch, and :func:`launch` raises when that
-is not 0.  Nothing here runs at import time: the CPU tests import every
-module of the port on a machine with no ``nvcc``.
+Each source compiles with ``nvcc`` into its own shared library with a plain
+C interface, at first use, into ``build/provekit_tpu_torch/`` at the root of
+the checkout; one ``nvcc`` per source, all started together.  A library's
+file name carries a hash of its source, the shared header and the flags, so
+an edited source is rebuilt.  The libraries are loaded with ``ctypes``:
+every pointer and the stream pass as ``c_void_p``, every C entry point
+returns ``cudaGetLastError()`` after its launch, and :func:`launch` raises
+when that is not 0.  Nothing here runs at import time: the CPU tests import
+every module of the port on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -30,28 +31,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
-# C signatures of the entry points (csrc/*.cu); all return int.
+# C signatures of the entry points, by source (csrc/*.cu); all return int.
 SIGNATURES = {
-    "pk_mont_mul": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
-    "pk_ntt_stage": [_P, _P, _I64, _P, _I64, _I32, _I32, _P],
-    "pk_compress": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
-    "pk_permute": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I64, _P],
+    "mont_mul.cu": {
+        "pk_mont_mul": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P]},
+    "ntt_stage.cu": {
+        "pk_ntt_stage": [_P, _P, _I64, _P, _I64, _I32, _I32, _P],
+        "pk_butterfly": [_P, _P, _I64, _P, _I64, _I32, _I32, _P]},
+    "skyscraper.cu": {
+        "pk_compress": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
+        "pk_permute": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I64, _P]},
+    "mont_mul_mma.cu": {
+        "pk_mont_mul_mma": [_P, _P, _P, _P, _I64, _P]},
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: dict | None = None
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def library_path() -> Path:
+def library_path(source: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libpk_kernels_{h.hexdigest()[:16]}.so"
+    for path in [CSRC / source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"libpk_{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -64,41 +67,54 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it is up to date."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+def build() -> list[Path]:
+    """Compile every csrc/*.cu that is not up to date, one nvcc per source,
+    all running at once; returns the libraries' paths."""
+    outs = {src: library_path(src) for src in SIGNATURES}
+    jobs = []
+    for src, out in outs.items():
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        jobs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return list(outs.values())
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def lib() -> dict:
+    """Entry point name -> loaded C function (libraries built on first
+    call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            build()
+            fns = {}
+            for src, sigs in SIGNATURES.items():
+                handle = ctypes.CDLL(str(library_path(src)))
+                for name, argtypes in sigs.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+            _lib = fns
     return _lib
 
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry point ``name`` on ``device``'s current stream; raise on a
     launch error.  ``args`` exclude the trailing stream argument."""
-    fn = getattr(lib(), name)
+    fn = lib()[name]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)

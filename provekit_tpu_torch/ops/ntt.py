@@ -7,10 +7,13 @@ batched, then one bit-reversal gather of chunks.  Sizes up to 2^12 run
 single-phase (chunk 1); larger ones take the four-step split
 X = NTT_n2(twiddle(NTT_n1(A))).
 
-``ntt_stage`` is the kernel of this module: on a CUDA tensor it launches
-``csrc/ntt_stage.cu``; on a CPU tensor it runs :func:`ntt_stage_plain`.  The
-bit-reversal gather, the cross-twiddle product and the transpose stay torch
-ops.  Twiddle tables are Montgomery form and cached per device.
+A stage runs one of the module's two kernels, chosen where the JAX package
+chooses between its fused stage and its butterfly (:func:`butterfly_route`):
+``ntt_stage`` or ``butterfly``, which compute the same stage with one body
+(``csrc/ntt_stage.cu``).  On a CUDA tensor each launches its kernel; on a
+CPU tensor each runs the plain stage.  The bit-reversal gather, the
+cross-twiddle product and the transpose stay torch ops.  Twiddle tables are
+Montgomery form and cached per device.
 """
 
 from __future__ import annotations
@@ -75,19 +78,47 @@ def _cross_twiddles(log_n: int, log_n1: int, inverse: bool,
     return tw[:, idx.reshape(-1)].contiguous()
 
 
+def butterfly_plain(a: torch.Tensor, b: torch.Tensor,
+                    tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a + b, (a - b) * tw) in plain torch: the JAX package's
+    ``butterfly_dispatch`` off the TPU."""
+    return V.add_mod(a, b), V.mont_mul_plain(V.sub_mod(a, b), tw)
+
+
 def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int,
                     chunk: int) -> torch.Tensor:
-    """One constant-geometry DIF stage in plain torch (see ntt_stage)."""
+    """One constant-geometry DIF stage in plain torch (see ntt_stage): the
+    butterfly of each step with its twiddle, then the chunk interleave."""
     n = x.shape[1]
     half = n // 2
     steps = half // chunk
     a = x[:, :half].reshape(16, steps, chunk)
     b = x[:, half:].reshape(16, steps, chunk)
     j = torch.arange(steps, device=x.device)
-    w = tw[:, (j >> s) << s].reshape(16, steps, 1)
-    u = V.add_mod(a, b)
-    t = V.mont_mul_plain(V.sub_mod(a, b), w)
+    u, t = butterfly_plain(a, b, tw[:, (j >> s) << s].reshape(16, steps, 1))
     return torch.stack([u, t], dim=2).reshape(16, n)
+
+
+def _launch_stage(wrapper, x: torch.Tensor, tw: torch.Tensor, s: int,
+                  chunk: int) -> torch.Tensor:
+    """Launch ``pk_<wrapper name>`` on CUDA operands and count it in
+    ``wrapper.launches``."""
+    name = wrapper.__name__
+    dev = K.check_cuda_int32(name, x, tw)
+    n = x.shape[1]
+    if (x.dim() != 2 or tw.dim() != 2 or chunk & (chunk - 1)
+            or n % (2 * chunk)):
+        raise ValueError(f"{name}: bad geometry x={tuple(x.shape)} "
+                         f"tw={tuple(tw.shape)} chunk={chunk}")
+    if ((n // (2 * chunk) - 1) >> s) << s >= max(1, tw.shape[1]):
+        raise ValueError(f"{name}: twiddle table too short")
+    x = x.contiguous()
+    tw = tw.contiguous()
+    out = torch.empty_like(x)
+    K.launch(f"pk_{name}", dev, x.data_ptr(), out.data_ptr(), n,
+             tw.data_ptr(), tw.shape[1], s, chunk.bit_length() - 1)
+    wrapper.launches += 1
+    return out
 
 
 def ntt_stage(x: torch.Tensor, tw: torch.Tensor, s: int,
@@ -100,24 +131,36 @@ def ntt_stage(x: torch.Tensor, tw: torch.Tensor, s: int,
     ``pk_ntt_stage`` (counted in ``ntt_stage.launches``) or raises."""
     if x.device.type == "cpu" and tw.device.type == "cpu":
         return ntt_stage_plain(x, tw, s, chunk)
-    dev = K.check_cuda_int32("ntt_stage", x, tw)
-    n = x.shape[1]
-    if (x.dim() != 2 or tw.dim() != 2 or chunk & (chunk - 1)
-            or n % (2 * chunk)):
-        raise ValueError(f"ntt_stage: bad geometry x={tuple(x.shape)} "
-                         f"tw={tuple(tw.shape)} chunk={chunk}")
-    if ((n // (2 * chunk) - 1) >> s) << s >= max(1, tw.shape[1]):
-        raise ValueError("ntt_stage: twiddle table too short")
-    x = x.contiguous()
-    tw = tw.contiguous()
-    out = torch.empty_like(x)
-    K.launch("pk_ntt_stage", dev, x.data_ptr(), out.data_ptr(), n,
-             tw.data_ptr(), tw.shape[1], s, chunk.bit_length() - 1)
-    ntt_stage.launches += 1
-    return out
+    return _launch_stage(ntt_stage, x, tw, s, chunk)
 
 
 ntt_stage.launches = 0
+
+
+def butterfly(x: torch.Tensor, tw: torch.Tensor, s: int,
+              chunk: int) -> torch.Tensor:
+    """The stage of :func:`ntt_stage` for the stages the JAX package sends
+    to its butterfly kernel (:func:`butterfly_route`).
+
+    A CPU operand takes :func:`ntt_stage_plain`; a CUDA operand launches
+    ``pk_butterfly`` (counted in ``butterfly.launches``) or raises."""
+    if x.device.type == "cpu" and tw.device.type == "cpu":
+        return ntt_stage_plain(x, tw, s, chunk)
+    return _launch_stage(butterfly, x, tw, s, chunk)
+
+
+butterfly.launches = 0
+
+
+def butterfly_route(n: int, chunk: int) -> bool:
+    """Whether a stage over (16, n) with this chunk takes the butterfly
+    kernel: where the JAX package's ``_pease_flat`` leaves its fused stage
+    (``ntt_stage_enabled``: chunk outside 256..4096) and
+    ``butterfly_dispatch`` takes ``butterfly_pallas`` (half >= 2048 and
+    half a multiple of min(512, half))."""
+    half = n >> 1
+    return (not 256 <= chunk <= 4096 and half >= 2048
+            and half % min(512, half) == 0)
 
 
 def _pease_flat(x: torch.Tensor, tw: torch.Tensor, rev: torch.Tensor,
@@ -126,7 +169,10 @@ def _pease_flat(x: torch.Tensor, tw: torch.Tensor, rev: torch.Tensor,
     if log_m == 0:
         return x
     n = x.shape[1]
-    stage = ntt_stage_plain if plain else ntt_stage
+    if plain:
+        stage = ntt_stage_plain
+    else:
+        stage = butterfly if butterfly_route(n, chunk) else ntt_stage
     for s in range(log_m):
         x = stage(x, tw, s, chunk)
     return x.reshape(16, 1 << log_m, chunk)[:, rev].reshape(16, n)

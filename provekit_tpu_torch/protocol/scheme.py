@@ -13,7 +13,9 @@ Port of ``provekit_tpu/protocol/scheme.py``:
   with the linear-statement weights (eq_r^T M rows) evaluated at the
   folding point instead of deferred.
 
-The scheme carries the torch ``device`` that prove and verify run on.
+The scheme carries the torch ``device`` that prove and verify run on; the
+entry points default to the card (``"cuda"``), and the CPU is taken only
+when the caller asks for it.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ class WhirR1CSScheme:
     @classmethod
     def new_for_r1cs(cls, r1cs: R1CS, security_level: int = 128,
                      max_pow_bits: int | None = None, *,
-                     device) -> "WhirR1CSScheme":
+                     device="cuda") -> "WhirR1CSScheme":
         m = next_power_of_two_log(r1cs.num_witnesses)
         m_0 = max(1, next_power_of_two_log(r1cs.num_constraints))
         blinding_vars = next_power_of_two_log(4 * m_0) + 1

@@ -43,3 +43,22 @@ class SpanTree:
 
 GLOBAL = SpanTree()
 span = GLOBAL.span
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` on the current CUDA stream over
+    ``reps`` runs after one warm-up run, timed with CUDA events."""
+    import statistics
+
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from provekit_tpu_torch.experiments import mxu_mont as M
 from provekit_tpu_torch.fields import bn254 as F
 from provekit_tpu_torch.fields import vector as V
 from provekit_tpu_torch.hash import skyscraper as S
@@ -53,6 +54,38 @@ def test_ntt_stage_kernel(cuda, chunk):
     for s in range(min(3, (4096 // chunk).bit_length() - 1)):
         assert torch.equal(ntt.ntt_stage(x, tw, s, chunk),
                            ntt.ntt_stage_plain(x, tw, s, chunk))
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 64, 8192])
+def test_butterfly_kernel(cuda, chunk):
+    n = max(4096, 4 * chunk)
+    x = canonical(n, 10 + chunk, cuda)
+    tw = ntt._twiddle_table((n // chunk).bit_length() - 1, False, cuda)
+    before = ntt.butterfly.launches
+    for s in range(min(3, (n // chunk).bit_length() - 1)):
+        got = ntt.butterfly(x, tw, s, chunk)
+        assert torch.equal(got, ntt.ntt_stage_plain(x, tw, s, chunk))
+        assert torch.equal(got, ntt.ntt_stage(x, tw, s, chunk))
+    assert ntt.butterfly.launches > before
+
+
+def test_butterfly_route_on_card(cuda):
+    # 2^13: both four-step passes (chunks 64 and 128) take the butterfly
+    x = canonical(1 << 13, 8, cuda)
+    before = ntt.butterfly.launches
+    assert torch.equal(ntt.ntt(x), ntt._ntt_core(x, 13, False, plain=True))
+    assert ntt.butterfly.launches == before + 13
+
+
+def test_mont_mul_mma_kernel(cuda):
+    a, b = canonical(4096 + 37, 11, cuda), canonical(4096 + 37, 12, cuda)
+    a[:, :4] = V.pack([0, 1, F.P - 1, F.R], cuda)
+    b[:, :4] = V.pack([F.P - 1] * 4, cuda)
+    before = M.mont_mul_mma.launches
+    got = M.mont_mul_mma(a, b)
+    assert torch.equal(got, V.mont_mul_plain(a, b))
+    assert torch.equal(got, M.mont_mul_mma_plain(a, b))
+    assert M.mont_mul_mma.launches == before + 1
 
 
 def test_rs_encode_kernel_path(cuda):

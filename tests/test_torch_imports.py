@@ -32,6 +32,22 @@ def test_port_imports_without_jax():
 
 def test_port_sources_name_no_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|provekit_tpu)\b", re.M)
-    offenders = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
+    files = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_kernel_signatures_match_sources():
+    """Every csrc/*.cu is built, and each C entry point named for it is
+    defined there with the argument count ``kernels.SIGNATURES`` gives
+    (ctypes would pass a wrong count on silently)."""
+    from provekit_tpu_torch import kernels as K
+    sources = sorted(p.name for p in K.CSRC.glob("*.cu"))
+    assert sorted(K.SIGNATURES) == sources
+    for src, sigs in K.SIGNATURES.items():
+        text = (K.CSRC / src).read_text()
+        for name, argtypes in sigs.items():
+            m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
+            assert m, (src, name)
+            assert m.group(1).count(",") + 1 == len(argtypes), (src, name)

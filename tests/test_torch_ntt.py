@@ -5,8 +5,14 @@
   decimated broadcast twiddles, butterfly, chunk interleave);
 * ``ntt``, ``intt``, ``rs_encode`` and the wavelet at log n = 9
   (single-phase) and 13 (four-step) against ``_ntt_core`` /
-  ``rs_encode(device=True)`` / ``_wavelet_dev`` and the host ``_host_ntt``.
+  ``rs_encode(device=True)`` / ``_wavelet_dev`` and the host ``_host_ntt``;
+* the butterfly route (which stages take the butterfly kernel) against the
+  JAX package's own branches for log n = 1..26, ``butterfly_plain`` against
+  ``butterfly_dispatch``, and the transform at 2^12 and 2^13, where every
+  stage takes the butterfly route.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +22,7 @@ import torch
 
 from provekit_tpu.fields import vector as JV
 from provekit_tpu.ops import ntt as JN
+from provekit_tpu.ops import pallas_kernels as JPK
 from provekit_tpu_torch import convert
 from provekit_tpu_torch.fields import vector as V
 from provekit_tpu_torch.ops import ntt
@@ -118,3 +125,69 @@ def test_wavelet_matches_jax(log_n):
     got = ntt.coeffs_of_evals(T(x))
     assert np.array_equal(N(got), want)
     assert np.array_equal(N(ntt.evals_of_coeffs(got)), x)
+
+
+def jax_plan(log_n: int) -> list[tuple[int, int]]:
+    """(n, chunk) of every Pease pass of the JAX package's ``_ntt_core``."""
+    n = 1 << log_n
+    if log_n <= JN.FOUR_STEP_MIN_LOG:
+        return [(n, 1)]
+    log_n1 = (log_n + 1) // 2
+    return [(n, 1 << (log_n - log_n1)), (n, 1 << log_n1)]
+
+
+def test_butterfly_route_matches_jax(monkeypatch):
+    """The JAX package's branches, run as on a TPU (Pallas on), on shapes
+    alone: its fused-stage switch, then ``butterfly_dispatch`` with the
+    kernel and the field ops replaced by recorders."""
+    monkeypatch.setenv("PROVEKIT_TPU_PALLAS", "1")
+    taken = []
+    monkeypatch.setattr(JPK, "butterfly_pallas",
+                        lambda a, b, tw: taken.append(True))
+    monkeypatch.setattr(JPK, "V", types.SimpleNamespace(
+        add_mod=lambda a, b: None, sub_mod=lambda a, b: None,
+        mont_mul=lambda a, b: None))
+
+    def jax_takes_butterfly(n, chunk):
+        if JPK.ntt_stage_enabled(chunk):
+            return False
+        taken.clear()
+        half = types.SimpleNamespace(ndim=2, shape=(16, n // 2))
+        JPK.butterfly_dispatch(half, half, half)
+        return bool(taken)
+
+    reached = []
+    for log_n in range(1, 27):
+        for n, chunk in jax_plan(log_n):
+            want = jax_takes_butterfly(n, chunk)
+            assert ntt.butterfly_route(n, chunk) == want, (log_n, chunk)
+            if want and log_n not in reached:
+                reached.append(log_n)
+    assert reached == [12, 13, 14, 15, 25, 26]
+
+
+def test_butterfly_plain_matches_jax_dispatch():
+    half = 2048
+    a, b, tw = (canonical(half, seed) for seed in (41, 42, 43))
+    want = JPK.butterfly_dispatch(jnp.asarray(a), jnp.asarray(b),
+                                  jnp.asarray(tw))
+    got = ntt.butterfly_plain(T(a), T(b), T(tw))
+    for g, w in zip(got, want):
+        assert np.array_equal(N(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("log_n", [12, 13])
+def test_ntt_butterfly_route(monkeypatch, log_n):
+    """Every stage at 2^12 (chunk 1) and 2^13 (chunks 64 and 128) takes the
+    butterfly route, whose CPU path is the plain stage.  The
+    transform matches the JAX package's host NTT here; at 2^13 it is also
+    held to ``_ntt_core`` by test_ntt_matches_jax_core[13]."""
+    chunks = []
+    kernel = ntt.butterfly
+    monkeypatch.setattr(ntt, "butterfly", lambda x, tw, s, chunk: (
+        chunks.append(chunk), kernel(x, tw, s, chunk))[1])
+    x = canonical(1 << log_n, seed=400 + log_n)
+    got = ntt.ntt(T(x))
+    assert sorted(set(chunks)) == sorted({c for _, c in jax_plan(log_n)})
+    assert len(chunks) == log_n
+    assert V.unpack(got) == JN._host_ntt(V.unpack(T(x)), log_n, False)
