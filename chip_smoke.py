@@ -4,26 +4,34 @@
     python3 chip_smoke.py
 
 Phases, one or more lines each:
-  1. card and toolchain (nvidia-smi name and power limit, torch, CUDA, nvcc);
+  1. card and toolchain (nvidia-smi name, power limit and maximum SM clock,
+     torch, CUDA, nvcc);
   2. build of the CUDA kernels from provekit_tpu_torch/csrc (one nvcc per
-     source, in parallel), with its time;
+     source, in parallel), with its time and what ptxas reports of the
+     Skyscraper kernels (registers, spills);
   3. each kernel against its plain torch version on the card at the shapes
      its path gives it: exact equality, both times (CUDA events, median) and
      the kernel's bound.  The butterfly runs at the sha256 x100 path's shape
      (16, 2^25), beside the fused stage on the same stage, and the whole
-     2^24 -> 2^25 Reed-Solomon encoding runs with the kernels; mont_mul and
-     compress run at the largest leaf shapes of that path's commitment; the
-     tensor-core Montgomery product runs at 2^21 beside the CIOS kernel;
+     2^24 -> 2^25 Reed-Solomon encoding runs with the kernels; mont_mul,
+     compress and the leaf fold run at the largest leaf shapes of that
+     path's commitment; the tensor-core Montgomery product runs at 2^21
+     beside the CIOS kernel.  The Skyscraper kernels also run at PoW's
+     broadcast shape and on edge values (0, 1, P - 1, P - 2, 2^253, inputs
+     whose S-box output reaches 4P); the duplex absorbs and squeezes at the
+     transcript's counts, and the sponge's serial chain runs as 200
+     permute calls beside one 200-output squeeze;
   4. the tensor-core Montgomery experiment (experiments/mxu_mont.py);
   5. the tiny scheme on the card: pinned proof digest, verify, tamper;
   6. poseidon2 x1000 at security 128 through the port's entry points:
      build, from_program, solve_witness, a warm-up prove, a timed prove (its
-     five spans, each kernel's launch count and the peak device memory),
-     one more prove under torch.profiler (device busy
-     share; the kernel table goes to chiprun_out/chip_smoke_profile.txt),
-     verify, and a flipped byte rejected;
-  7. sha256 x100 (RS domain 2^25) at security 128, the same stages without
-     the profiled prove, with a progress line per stage.
+     five spans, each kernel's launch count, the sponge's permutations and
+     the peak device memory), one more prove under torch.profiler (device
+     busy share and the Skyscraper kernels' share of it; the kernel table
+     goes to chiprun_out/chip_smoke_profile_poseidon.txt), verify, and a
+     flipped byte rejected;
+  7. sha256 x100 (RS domain 2^25) at security 128, the same stages, with a
+     progress line per stage.
 The line before the last is the kernel JSON, the one before it the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.  Any
 failure exits non-zero before them.  The script needs a CUDA card and the
@@ -42,14 +50,22 @@ TPU_KERNELS = "provekit_tpu/ops/pallas_kernels.py"
 SEED = 20261016
 T0 = time.perf_counter()
 
-# Peak rates of one H100 SXM at 700 W (NVIDIA's published figures): HBM
-# bytes/s, int8 tensor-core operations/s, and the CUDA cores' float32 rate,
-# taken as the peak for 32-bit integer multiply-adds (two operations each),
-# for which no figure is published.
+# Peak rates of one H100 SXM: HBM bytes/s and int8 tensor-core operations/s
+# (NVIDIA's published figures, 700 W); 32-bit integer multiply-adds at 64 a
+# clock on each of the 132 SMs (compute capability 9.0, the
+# arithmetic-throughput table of the CUDA C++ Programming Guide) at the
+# card's maximum SM clock.  A 32 x 32 -> 64-bit limb product needs its low
+# and its high word: two multiply-adds.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"int8_tensor": 1979e12, "cuda_core": 67e12}
-# 32-bit multiply-adds of one CIOS Montgomery product on 8 limbs
-MONT_MULADDS = 8 * 8 + 8 * 8 + 8
+INT8_TENSOR_OPS_S = 1979e12
+SMS = 132
+INT32_MULADDS_PER_SM_CLOCK = 64
+# Limb products of the least work on 8 x 32-bit limbs: a Montgomery product
+# (CIOS: 64 + 64 + 8) and a Montgomery square (36 + 72); a Skyscraper
+# permutation needs 14 squares (its 4 bar steps multiply nothing).
+MONT_MUL_PRODUCTS = 136
+MONT_SQR_PRODUCTS = 108
+LADDER_SQUARES = 14
 PLANE_BYTES = 64  # one field element: 16 digit planes of int32
 
 
@@ -62,12 +78,28 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def bound(nbytes: float, ops: dict) -> tuple[float, str]:
+def peak_rates(sm_clock_mhz: float) -> dict:
+    """Operations a second by unit, at a maximum SM clock in MHz."""
+    return {"int8_tensor": INT8_TENSOR_OPS_S,
+            "int32_muladd": SMS * INT32_MULADDS_PER_SM_CLOCK
+            * sm_clock_mhz * 1e6}
+
+
+def mont_mul_ops(n: int) -> dict:
+    return {"int32_muladd": 2 * MONT_MUL_PRODUCTS * n}
+
+
+def ladder_ops(permutations: int) -> dict:
+    return {"int32_muladd": 2 * MONT_SQR_PRODUCTS * LADDER_SQUARES
+            * permutations}
+
+
+def bound(nbytes: float, ops: dict, rates: dict) -> tuple[float, str]:
     """(least ms, what bounds it) for moving ``nbytes`` and doing ``ops``
-    (operations by unit) at the card's peak rates."""
+    (operations by unit) at the peak ``rates`` (:func:`peak_rates`)."""
     times = {"bytes": nbytes / HBM_BYTES_S * 1e3}
     for unit, count in ops.items():
-        times[f"operations ({unit})"] = count / PEAK_OPS_S[unit] * 1e3
+        times[f"operations ({unit})"] = count / rates[unit] * 1e3
     by = max(times, key=times.get)
     return times[by], "bytes" if by == "bytes" else "operations"
 
@@ -81,7 +113,38 @@ def random_planes(torch, rng, n: int, device):
 
 
 def max_abs_err(torch, a, b) -> int:
+    if a.shape != b.shape:
+        fail(f"shapes differ: {tuple(a.shape)} against {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def back_to_back_ms(torch, fn, reps: int = 20) -> float:
+    """Milliseconds a launch of ``reps`` launches queued back to back
+    between two CUDA events: the card does not idle while the host
+    prepares the next launch, as it can before a single timed launch."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_once(torch, fn):
+    """(result, ms) of one run of a slow plain version, CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def phase_toolchain(torch):
@@ -89,29 +152,40 @@ def phase_toolchain(torch):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    rates = peak_rates(float(clock))
     from provekit_tpu_torch import kernels as K
     nvcc = subprocess.run([K._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"[1] {card}")
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} nvcc: {nvcc[-1]}")
-    return card
+    log(f"[1] maximum SM clock {clock} MHz: 32-bit integer multiply-adds at "
+        f"{rates['int32_muladd'] / 1e12:.3f} T/s")
+    return card, rates
 
 
 def phase_build():
     from provekit_tpu_torch import kernels as K
     t0 = time.perf_counter()
-    paths = K.build()
+    reports = K.build()
     K.lib()
-    log(f"[2] {len(paths)} kernel libraries built in "
+    log(f"[2] {len(K.SIGNATURES)} kernel libraries built in "
         f"{time.perf_counter() - t0:.3f} s")
+    for line in reports.get("skyscraper.cu", "").splitlines():
+        if "ptxas info" in line or "spill" in line:
+            log(f"[2] skyscraper.cu {line.strip()}")
 
 
 class Rows:
     """The kernel table of phase 3: one row per kernel, checked as added."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, rates):
         self.torch = torch
+        self.rates = rates
         self.rows = {}
 
     def check(self, name, shape, got, want, ms=None, plain_ms=None,
@@ -124,7 +198,7 @@ class Rows:
         if plain_ms is not None:
             line += f", plain {plain_ms:.4f} ms"
         if nbytes is not None:
-            bound_ms, bound_by = bound(nbytes, ops)
+            bound_ms, bound_by = bound(nbytes, ops, self.rates)
             line += f", bound {bound_ms:.4f} ms ({bound_by})"
             row.update(bound_ms=bound_ms, bound_by=bound_by)
         log(line)
@@ -136,7 +210,7 @@ class Rows:
         return err
 
 
-def phase_kernels(torch, dev):
+def phase_kernels(torch, dev, rates):
     """Each kernel against its plain version at the shapes of its path."""
     import numpy as np
     from provekit_tpu_torch.experiments import mxu_mont as M
@@ -146,18 +220,7 @@ def phase_kernels(torch, dev):
     from provekit_tpu_torch.utils.profiling import cuda_ms
 
     rng = np.random.default_rng(SEED)
-    rows = Rows(torch)
-    mont_ops = {"cuda_core": 2 * MONT_MULADDS}
-
-    def timed_once(fn):
-        """(result, ms) of one run of a slow plain version."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
+    rows = Rows(torch, rates)
 
     n = 1 << 21
     a = random_planes(torch, rng, n, dev)
@@ -166,7 +229,7 @@ def phase_kernels(torch, dev):
                cuda_ms(lambda: V.mont_mul(a, b), 20),
                cuda_ms(lambda: V.mont_mul_plain(a, b), 3),
                nbytes=3 * PLANE_BYTES * n,
-               ops={u: n * c for u, c in mont_ops.items()},
+               ops=mont_mul_ops(n),
                source="mont_mul.cu", replaces=f"{TPU_KERNELS}:74")
 
     for chunk in (1, 1024, 2048):
@@ -177,7 +240,7 @@ def phase_kernels(torch, dev):
             steps = n // (2 * chunk)
             extra = dict(nbytes=2 * PLANE_BYTES * n
                          + PLANE_BYTES * (((steps - 1) >> s) + 1),
-                         ops={u: n // 2 * c for u, c in mont_ops.items()},
+                         ops=mont_mul_ops(n // 2),
                          source="ntt_stage.cu",
                          replaces=f"{TPU_KERNELS}:174")
         rows.check("ntt_stage", f"n=2^21 chunk={chunk} s={s}",
@@ -196,48 +259,19 @@ def phase_kernels(torch, dev):
     rows.check("mont_mul_mma", "n=2^21 against mont_mul_plain",
                M.mont_mul_mma(a, b), V.mont_mul_plain(a, b))
     got = M.mont_mul_mma(a, b)
-    want, plain_ms = timed_once(lambda: M.mont_mul_mma_plain(a, b))
+    want, plain_ms = timed_once(torch, lambda: M.mont_mul_mma_plain(a, b))
     rows.check("mont_mul_mma", "n=2^21", got, want,
                cuda_ms(lambda: M.mont_mul_mma(a, b), 20), plain_ms,
                nbytes=3 * PLANE_BYTES * n,
                ops={"int8_tensor": n * 2 * (32 + 64) * 32,
-                    "cuda_core": n * 2 * 64},
+                    "int32_muladd": n * 2 * 64},
                source="mont_mul_mma.cu",
                replaces="scripts/mxu_mont_experiment.py:244")
     log(f"[3] mont_mul_mma beside mont_mul at n=2^21: "
         f"{rows.rows['mont_mul_mma']['ms']:.4f} ms against "
         f"{rows.rows['mont_mul']['ms']:.4f} ms")
 
-    for logn in (17, 20):
-        m = 1 << logn
-        l, r = a[:, :m], b[:, :m]
-        extra = {}
-        if logn == 20:
-            extra = dict(nbytes=3 * PLANE_BYTES * m,
-                         ops={"cuda_core": m * 14 * 2 * MONT_MULADDS},
-                         source="skyscraper.cu",
-                         replaces=f"{TPU_KERNELS}:233")
-        rows.check("compress", f"n=2^{logn}", S.compress_v(l, r),
-                   S.compress_plain(l, r),
-                   cuda_ms(lambda: S.compress_v(l, r), 10),
-                   cuda_ms(lambda: S.compress_plain(l, r), 3), **extra)
-
-    # the sponge's serial chain: dependent n = 1 permutations
-    calls = 200
-
-    def chain(fn):
-        l, r = a[:, :1], b[:, :1]
-        for _ in range(calls):
-            l, r = fn(l, r)
-        return torch.cat([l, r], dim=1)
-
-    want, plain_ms = timed_once(lambda: chain(S.permute_plain))
-    rows.check("permute", f"{calls} sequential n=1 calls, per call",
-               chain(S.permute_v), want,
-               cuda_ms(lambda: chain(S.permute_v), 3) / calls,
-               plain_ms / calls, nbytes=4 * PLANE_BYTES,
-               ops={"cuda_core": 14 * 2 * MONT_MULADDS},
-               source="skyscraper.cu", replaces=f"{TPU_KERNELS}:297")
+    phase_skyscraper(torch, rows, dev, a, b)
     del a, b, coeffs
 
     # the butterfly at the sha256 x100 path's second-pass stages: (16, 2^25),
@@ -250,12 +284,12 @@ def phase_kernels(torch, dev):
     steps = n // 2 // chunk
     for s in (0, 11):
         want, plain_ms = timed_once(
-            lambda: ntt.ntt_stage_plain(x, tw, s, chunk))
+            torch, lambda: ntt.ntt_stage_plain(x, tw, s, chunk))
         extra = {}
         if s == 0:
             extra = dict(nbytes=2 * PLANE_BYTES * n
                          + PLANE_BYTES * (((steps - 1) >> s) + 1),
-                         ops={u: n // 2 * c for u, c in mont_ops.items()},
+                         ops=mont_mul_ops(n // 2),
                          source="ntt_stage.cu",
                          replaces=f"{TPU_KERNELS}:113")
         rows.check("butterfly", f"n=2^25 chunk=8192 s={s}",
@@ -280,7 +314,8 @@ def phase_kernels(torch, dev):
     log(f"[3] cross-twiddle table of 2^25: {table.numel() * 4 / 2**30:.3f} "
         f"GiB cached, {build_gib:.3f} GiB at the peak of its build")
     del table
-    want, plain_ms = timed_once(lambda: ntt.rs_encode(coeffs, 25, plain=True))
+    want, plain_ms = timed_once(
+        torch, lambda: ntt.rs_encode(coeffs, 25, plain=True))
     rows.check("rs_encode", "2^24 -> 2^25", ntt.rs_encode(coeffs, 25), want,
                cuda_ms(lambda: ntt.rs_encode(coeffs, 25), 3), plain_ms)
     del coeffs, want
@@ -292,12 +327,157 @@ def phase_kernels(torch, dev):
     return rows.rows
 
 
+def edge_values() -> list:
+    """Canonical inputs at the edges of the ladder's arithmetic: 0, 1, 2,
+    P - 1, P - 2, 2^253, 2^253 - 1, 2^256 mod P, P // 2, and four values
+    whose rotated, S-boxed bytes reach 4P before bar's reduction."""
+    import numpy as np
+    from provekit_tpu_torch.fields import bn254 as F
+    from provekit_tpu_torch.hash import skyscraper as S
+    vals = [0, 1, 2, F.P - 1, F.P - 2, 1 << 253, (1 << 253) - 1, F.R,
+            F.P // 2]
+    rng = np.random.default_rng(SEED)
+    while len(vals) < 13:
+        x = int.from_bytes(rng.bytes(32), "little") % F.P
+        b = F.to_bytes_le(x)
+        if int.from_bytes(bytes(S.sbox(v) for v in b[16:] + b[:16]),
+                          "little") >= 4 * F.P:
+            vals.append(x)
+    return vals
+
+
+def phase_skyscraper(torch, rows, dev, a, b):
+    """K4 and K5 (csrc/skyscraper.cu) against their plain versions: compress
+    at 2^17 and 2^20, at PoW's broadcast shape and on edge values; the leaf
+    fold and permute on edge values, permute at n = 1 and 2^17; the duplex
+    at the transcript's absorb and squeeze counts and from edge states; the
+    sponge's serial chain as 200 permute calls and as one squeeze."""
+    from provekit_tpu_torch.fields import vector as V
+    from provekit_tpu_torch.hash import skyscraper as S
+    from provekit_tpu_torch.utils.profiling import cuda_ms
+
+    for logn in (17, 20):
+        m = 1 << logn
+        l, r = a[:, :m], b[:, :m]
+        extra = {}
+        if logn == 20:
+            extra = dict(nbytes=3 * PLANE_BYTES * m, ops=ladder_ops(m),
+                         source="skyscraper.cu",
+                         replaces=f"{TPU_KERNELS}:233")
+        rows.check("compress", f"n=2^{logn}", S.compress_v(l, r),
+                   S.compress_plain(l, r),
+                   cuda_ms(lambda: S.compress_v(l, r), 20),
+                   cuda_ms(lambda: S.compress_plain(l, r), 3), **extra)
+    log(f"[3] 20 launches back to back, per launch: compress n=2^20 "
+        f"{back_to_back_ms(torch, lambda: S.compress_v(l, r)):.4f} ms, "
+        f"mont_mul n=2^21 "
+        f"{back_to_back_ms(torch, lambda: V.mont_mul(a, b)):.4f} ms")
+    # PoW (ops/pow.py): one challenge at column stride 0 against a block of
+    # 32-bit nonces
+    nonces = torch.zeros((16, 1 << 16), dtype=torch.int32, device=dev)
+    nonces[0] = torch.arange(1 << 16, dtype=torch.int32, device=dev) & 0xFFFF
+    nonces[1] = 0x1234
+    ch = a[:, :1]
+    rows.check("compress", "PoW: (16, 1) challenge against 2^16 nonces",
+               S.compress_v(ch, nonces), S.compress_plain(ch, nonces))
+
+    edge = V.pack(edge_values(), dev)
+    e = edge.shape[1]
+    el, er = edge.repeat_interleave(e, dim=1), edge.repeat(1, e)
+    rows.check("compress", f"edge values, {e * e} pairs",
+               S.compress_v(el, er), S.compress_plain(el, er))
+    rows.check("permute", f"edge values, {e * e} pairs",
+               torch.cat(S.permute_v(el, er), 1),
+               torch.cat(S.permute_plain(el, er), 1))
+    leaves = torch.stack([el, er, el.flip(1)], dim=1)
+    rows.check("compress_fold", f"edge values, (16, 3, {e * e})",
+               S.compress_fold_v(leaves), S.compress_fold_plain(leaves))
+    for m in (1, 1 << 17):
+        l, r = a[:, :m], b[:, :m]
+        rows.check("permute", f"n={m}", torch.cat(S.permute_v(l, r), 1),
+                   torch.cat(S.permute_plain(l, r), 1),
+                   cuda_ms(lambda: S.permute_v(l, r), 10))
+
+    # the duplex at the transcript's counts: absorbs of 1 unit (a root, a
+    # PoW nonce), 4 and 8 from either position, squeezes of 1, 3 and a STIR
+    # query draw of 100; then one absorb-and-squeeze from each edge state
+    state = torch.cat([edge[:, 3:4], a[:, :1]], dim=1)
+    units = torch.cat([edge, a[:, :8]], dim=1)
+    for k in (1, 4, 8):
+        for start in (0, 1):
+            arr = units[:, :k]
+            rows.check("duplex", f"absorb k={k} from position {start}",
+                       torch.cat(S.duplex_v(state, arr, start, 0), 1),
+                       torch.cat(S.duplex_plain(state, arr, start, 0), 1))
+    for n in (1, 3, 100):
+        rows.check("duplex", f"squeeze n={n}",
+                   torch.cat(S.duplex_v(state, None, 0, n), 1),
+                   torch.cat(S.duplex_plain(state, None, 0, n), 1))
+    bad = []
+    for i in range(e):
+        st = torch.cat([edge[:, i:i + 1], edge[:, e - 1 - i:e - i]], dim=1)
+        got = torch.cat(S.duplex_v(st, edge[:, :2], 1, 2), 1)
+        if max_abs_err(torch, got, torch.cat(
+                S.duplex_plain(st, edge[:, :2], 1, 2), 1)):
+            bad.append(i)
+    if bad:
+        fail(f"duplex disagrees with its plain version from edge states {bad}")
+    log(f"[3] duplex from {e} edge states, absorb 2 then squeeze 2: "
+        f"equal=True")
+
+    # the sponge's serial chain: 200 dependent permutations as n = 1 calls
+    # of permute, and as one squeeze of the duplex
+    calls = 200
+    l0, r0 = a[:, :1], b[:, :1]
+
+    def chain(fn):
+        l, r = l0, r0
+        for _ in range(calls):
+            l, r = fn(l, r)
+        return torch.cat([l, r], dim=1)
+
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # the plain squeeze is the same 200 permute_plain calls, and its final
+    # state the chain's
+    state = torch.cat([l0, r0], dim=1)
+    (st_want, out_want), plain_ms = timed_once(
+        torch, lambda: S.duplex_plain(state, None, 0, calls))
+    rows.check("permute", f"{calls} sequential n=1 calls, per call",
+               chain(S.permute_v), st_want,
+               cuda_ms(lambda: chain(S.permute_v), 3) / calls,
+               plain_ms / calls, nbytes=4 * PLANE_BYTES, ops=ladder_ops(1),
+               source="skyscraper.cu", replaces=f"{TPU_KERNELS}:297")
+    got_state, got_out = S.duplex_v(state, None, 0, calls)
+    rows.check("duplex", f"one squeeze of {calls}, per permutation",
+               torch.cat([got_state, got_out], 1),
+               torch.cat([st_want, out_want], 1),
+               cuda_ms(lambda: S.duplex_v(state, None, 0, calls), 5) / calls,
+               plain_ms / calls, nbytes=4 * PLANE_BYTES, ops=ladder_ops(1),
+               source="skyscraper.cu", replaces=f"{TPU_KERNELS}:297")
+    rows.check("duplex", f"squeeze of {calls} against {calls} permute calls",
+               got_state, chain(S.permute_v))
+    log(f"[3] serial chain of {calls} permutations, host wall clock per "
+        f"permutation: permute calls "
+        f"{wall_ms(lambda: chain(S.permute_v)) / calls:.4f} ms, one duplex "
+        f"squeeze "
+        f"{wall_ms(lambda: S.duplex_v(state, None, 0, calls)) / calls:.4f} ms")
+
+
 def phase_leaves(torch, rng, rows, dev):
-    """mont_mul and compress at the largest shapes of the sha256 x100 path:
-    its first commitment's ``from_mont`` of the (16, 2 * 16, 2^21) leaves
-    (2^26 elements times a broadcast constant), the first fold of
-    ``merkle.hash_leaves`` on two strided leaf rows, and the tree's first
-    level on column-strided halves."""
+    """mont_mul, the leaf fold and compress at the largest shapes of the
+    sha256 x100 path: its first commitment's ``from_mont`` of the
+    (16, 2 * 16, 2^21) leaves (2^26 elements times a broadcast constant),
+    ``merkle.hash_leaves`` on them (one fold launch; against its plain
+    version and against the 31 single-step launches it replaces), compress
+    on two strided leaf rows, and the tree's first level on column-strided
+    halves."""
     from provekit_tpu_torch.fields import vector as V
     from provekit_tpu_torch.hash import skyscraper as S
     from provekit_tpu_torch.utils.profiling import cuda_ms
@@ -321,6 +501,29 @@ def phase_leaves(torch, rng, rows, dev):
                cuda_ms(lambda: V.from_mont(enc), 3), None)
     del enc, flat, want
     leaves = got
+    size, n = leaves.shape[1], leaves.shape[2]
+    fold = S.compress_fold_v(leaves)
+    want, plain_ms = timed_once(torch, lambda: S.compress_fold_plain(leaves))
+    rows.check("compress_fold", f"{shape} sha256 leaves", fold, want,
+               cuda_ms(lambda: S.compress_fold_v(leaves), 5), plain_ms,
+               nbytes=(size + 1) * PLANE_BYTES * n,
+               ops=ladder_ops((size - 1) * n), source="skyscraper.cu",
+               replaces=f"{TPU_KERNELS}:233")
+    del want
+
+    def single_steps():
+        h = leaves[:, 0, :]
+        for i in range(1, size):
+            h = S.compress_v(h, leaves[:, i, :])
+        return h
+
+    rows.check("compress_fold",
+               f"{shape} against {size - 1} single-step launches", fold,
+               single_steps())
+    log(f"[3] sha256 leaf hash of {shape}: one fold launch "
+        f"{rows.rows['compress_fold']['ms']:.4f} ms, {size - 1} single-step "
+        f"launches {cuda_ms(single_steps, 5):.4f} ms")
+    del fold
     l, r = leaves[:, 0, :], leaves[:, 1, :]
     rows.check("compress", f"hash_leaves fold, {shape} rows 0 and 1",
                S.compress_v(l, r), S.compress_plain(l, r),
@@ -415,38 +618,69 @@ def phase_tiny(dev):
 def reset_counts(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "permutations"):
+            fn.permutations = 0
 
 
-def profile_prove(torch, whir, r1cs, witness, path, tag) -> None:
-    """One more prove under torch.profiler: kernel table + device busy share
-    (summed kernel time over the prove's wall time) written to ``path``."""
+SKYSCRAPER_KERNELS = ("compress_kernel", "compress_fold_kernel",
+                      "permute_kernel", "duplex_kernel")
+
+
+def profile_prove(torch, whir, r1cs, witness, path, tag, cpu) -> None:
+    """One more prove under torch.profiler: kernel table, device busy share
+    (summed kernel time over the prove's wall time) and the Skyscraper
+    kernels' device time (the duplex's per permutation) written to
+    ``path``.  ``cpu`` also records the host's operators (their table
+    follows), which takes minutes to aggregate on the sha256 path."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    from provekit_tpu_torch.hash import skyscraper as S
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    perms = S.duplex_v.permutations
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         whir.prove(r1cs, witness, rng=random.Random(2))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    perms = S.duplex_v.permutations - perms
     events = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    launches = sum(e.count for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    cuda = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in cuda)
+    launches = sum(e.count for e in cuda)
+    sky = {}
+    for name in SKYSCRAPER_KERNELS:
+        hits = [e for e in cuda if f"::{name}(" in e.key
+                or e.key.startswith(f"{name}(")]
+        sky[name] = (sum(e.self_device_time_total for e in hits),
+                     sum(e.count for e in hits))
+    sky_us = sum(us for us, _ in sky.values())
+    duplex_us = sky["duplex_kernel"][0]
     summary = (f"profiled prove: wall {wall:.3f} s, device busy "
                f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}%), "
-               f"{launches} device kernels")
+               f"{launches} device kernels; Skyscraper kernels "
+               f"{sky_us / 1e3:.3f} ms ({100 * sky_us / max(busy_us, 1):.1f}% "
+               f"of device time): "
+               + ", ".join(f"{k} {us / 1e3:.3f} ms in {c}"
+                           for k, (us, c) in sky.items())
+               + f"; duplex {perms} permutations, "
+               f"{duplex_us / max(perms, 1):.2f} us of device time each")
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(summary + "\n\n" + events.table(
-        sort_by="self_cuda_time_total", row_limit=40) + "\n\n" + events.table(
-        sort_by="self_cpu_time_total", row_limit=25))
+    tables = [events.table(sort_by="self_cuda_time_total", row_limit=40)]
+    if cpu:
+        tables.append(events.table(sort_by="self_cpu_time_total",
+                                   row_limit=25))
+    path.write_text("\n\n".join([summary, *tables]))
     log(f"{tag} {summary} -> {path}")
 
 
-def prove_path(torch, dev, tag, name, build, counters, expect, profile_to):
+def prove_path(torch, dev, tag, name, build, counters, expect, profile_to,
+               profile_cpu):
     """One circuit through the port's entry points: build, from_program,
     solve_witness, a warm-up prove, a timed prove with the launch counts of
-    ``counters`` (each name in ``expect`` must launch), optionally a
-    profiled prove, verify and a flipped byte.  Returns the launch counts."""
+    ``counters`` (each name in ``expect`` must launch), a profiled prove
+    (:func:`profile_prove`), verify and a flipped byte.  Returns the launch
+    counts."""
     from provekit_tpu_torch.compiler import NoirProofScheme
     from provekit_tpu_torch.utils import profiling
 
@@ -484,6 +718,7 @@ def prove_path(torch, dev, tag, name, build, counters, expect, profile_to):
     reset_counts(counters)
     proof = stage("prove", prove)
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["duplex_permutations"] = counters["duplex"].permutations
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     spans = {s.name: s.elapsed for s in profiling.GLOBAL.root.children[mark:]}
     profiling.GLOBAL.sync = None
@@ -493,8 +728,7 @@ def prove_path(torch, dev, tag, name, build, counters, expect, profile_to):
         f"{hashlib.sha256(proof).hexdigest()}; launches during the timed "
         f"prove: {launches}; peak device memory {peak_gib:.3f} GiB")
 
-    if profile_to is not None:
-        profile_prove(torch, whir, r1cs, witness, profile_to, tag)
+    profile_prove(torch, whir, r1cs, witness, profile_to, tag, profile_cpu)
     stage("verify", lambda: whir.verify(r1cs, proof))
     expect_rejected(whir, r1cs, proof, [len(proof) // 2])
     log(f"{tag} {name}: verify ok, flipped byte rejected; stages "
@@ -519,23 +753,25 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     counters = {"mont_mul": V.mont_mul, "ntt_stage": ntt.ntt_stage,
                 "butterfly": ntt.butterfly, "compress": S.compress_v,
-                "permute": S.permute_v}
-    card = phase_toolchain(torch)
+                "compress_fold": S.compress_fold_v, "permute": S.permute_v,
+                "duplex": S.duplex_v}
+    card, rates = phase_toolchain(torch)
     phase_build()
-    rows = phase_kernels(torch, dev)
+    rows = phase_kernels(torch, dev, rates)
     mxu_launches = phase_mxu(torch, dev)
     phase_tiny(dev)
-    profile_to = (Path(__file__).resolve().parent / "chiprun_out"
-                  / "chip_smoke_profile.txt")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    on_path = ["mont_mul", "ntt_stage", "compress", "compress_fold",
+               "duplex"]
     by_path = {}
     by_path["poseidon2_x1000"] = prove_path(
         torch, dev, "[6]", "poseidon2 x1000",
-        lambda: poseidon.hash_chain_circuit(1000), counters,
-        ["mont_mul", "ntt_stage", "compress", "permute"], profile_to)
+        lambda: poseidon.hash_chain_circuit(1000), counters, on_path,
+        out_dir / "chip_smoke_profile_poseidon.txt", True)
     by_path["sha256_x100"] = prove_path(
         torch, dev, "[7]", "sha256 x100",
-        lambda: sha256.chain_circuit(100), counters,
-        ["mont_mul", "ntt_stage", "butterfly", "compress", "permute"], None)
+        lambda: sha256.chain_circuit(100), counters, on_path + ["butterfly"],
+        out_dir / "chip_smoke_profile_sha256.txt", False)
 
     kernels = []
     for name, row in rows.items():
@@ -553,6 +789,9 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": row["shape"], "launches_by_path": per_path})
+        if name == "duplex":
+            kernels[-1]["permutations_by_path"] = {
+                p: c["duplex_permutations"] for p, c in by_path.items()}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -107,6 +107,9 @@ def mont_mul_mma_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return V._planes(V._cond_sub_p(V._normalize(V._limbs(r))))
 
 
+_PK_MONT_MUL_MMA = K.Entry("pk_mont_mul_mma")
+
+
 def mont_mul_mma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product of two (16, n) plane tensors on the tensor cores.
 
@@ -121,8 +124,8 @@ def mont_mul_mma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = a.contiguous(), b.contiguous()
     n = a.shape[1]
     out = torch.empty_like(a)
-    K.launch("pk_mont_mul_mma", dev, a.data_ptr(), b.data_ptr(),
-             _bands(dev).data_ptr(), out.data_ptr(), n)
+    _PK_MONT_MUL_MMA(dev, a.data_ptr(), b.data_ptr(), _bands(dev).data_ptr(),
+                     out.data_ptr(), n)
     mont_mul_mma.launches += 1
     return out
 

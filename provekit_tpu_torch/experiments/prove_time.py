@@ -8,7 +8,8 @@ card 0, solves its witness, makes one warm-up prove, then times ``--proves``
 proves and one verify, each ended by a CUDA synchronize.  It prints one JSON
 line: the set-up and prove and verify seconds, the proof's length and
 SHA-256, the launch counts of the timed proves and their peak device
-memory.  It calls only entry points that every slice of the port has, so two
+memory (and the sponge's permutations, where the checkout counts them).
+It calls only entry points that every slice of the port has, so two
 checkouts (a parent commit unpacked beside this one) can be run in turn in
 one call on one card, each in a fresh process.
 """
@@ -46,8 +47,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     counters = {"mont_mul": V.mont_mul, "ntt_stage": ntt.ntt_stage,
                 "compress": S.compress_v, "permute": S.permute_v}
-    if hasattr(ntt, "butterfly"):
-        counters["butterfly"] = ntt.butterfly
+    for mod, name in ((ntt, "butterfly"), (S, "compress_fold_v"),
+                      (S, "duplex_v")):
+        if hasattr(mod, name):
+            counters[name.removesuffix("_v")] = getattr(mod, name)
 
     out = {"package": str(Path(provekit_tpu_torch.__file__).parent)}
     t0 = time.perf_counter()
@@ -69,6 +72,8 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
         fn.launches = 0
+    if "duplex" in counters:
+        S.duplex_v.permutations = 0
     proofs, out["prove_s"] = [], []
     for _ in range(args.proves):
         proof, sec = prove()
@@ -76,6 +81,8 @@ def main(argv=None) -> int:
         out["prove_s"].append(sec)
     out["launches_per_prove"] = {k: fn.launches / args.proves
                                  for k, fn in counters.items()}
+    if "duplex" in counters:
+        out["permutations_per_prove"] = S.duplex_v.permutations / args.proves
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     t = time.perf_counter()
     whir.verify(r1cs, proofs[0])

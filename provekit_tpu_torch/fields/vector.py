@@ -243,6 +243,9 @@ def _plane_view(x: torch.Tensor, shape, n: int):
     return v, v.stride(0), v.stride(1)
 
 
+_PK_MONT_MUL = K.Entry("pk_mont_mul")
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product with broadcasting; the CUDA kernel on the card.
 
@@ -258,8 +261,8 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     av, a_rs, a_cs = _plane_view(a, shape, n)
     bv, b_rs, b_cs = _plane_view(b, shape, n)
     out = torch.empty((NLIMBS, n), dtype=I32, device=dev)
-    K.launch("pk_mont_mul", dev, av.data_ptr(), a_rs, a_cs, bv.data_ptr(),
-             b_rs, b_cs, out.data_ptr(), n)
+    _PK_MONT_MUL(dev, av.data_ptr(), a_rs, a_cs, bv.data_ptr(), b_rs, b_cs,
+                 out.data_ptr(), n)
     mont_mul.launches += 1
     return out.reshape(shape)
 

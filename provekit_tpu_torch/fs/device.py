@@ -2,10 +2,11 @@
 
 Port of ``provekit_tpu/fs/device.py``.  The prover keeps its whole
 transcript on the device: the duplex sponge state (16, 2) advances through
-the ``permute_v`` kernel, absorbed scalars and hint payloads are recorded as
-device tensors, and ``narg_string()`` fetches them in ONE device-to-host
-copy and assembles exactly the bytes of the host ``ProverState``.  The
-verifier replays the transcript with the host sponge.
+the ``duplex_v`` kernel, one launch per absorb or squeeze; absorbed scalars
+and hint payloads are recorded as device tensors, and ``narg_string()``
+fetches them in ONE device-to-host copy and assembles exactly the bytes
+of the host ``ProverState``.  The verifier replays the transcript with the
+host sponge.
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ import torch
 
 from ..fields import bn254 as F
 from ..fields import vector as V
+from ..hash import skyscraper as S
 from .transcript import DomainSeparator, _OpChecker
-
-RATE = 1
 
 
 # ---------------------------------------------------------------------------
@@ -108,34 +108,24 @@ def scalar_index_u32(canon: torch.Tensor, mask: int) -> torch.Tensor:
 # device duplex sponge
 
 
-def permute_state(state: torch.Tensor) -> torch.Tensor:
-    """Duplex permute of a (16, 2) canonical state (the permute kernel)."""
-    from ..hash import skyscraper as S
-    l, r = S.permute_v(state[:, :1], state[:, 1:])
-    return torch.cat([l, r], dim=1)
+def duplex(state: torch.Tensor, arr: torch.Tensor | None, start_pos: int,
+           n: int):
+    """Absorb the columns of (16, k) canonical ``arr`` (None for none) from
+    absorb position ``start_pos``, then squeeze ``n``: one launch of the
+    duplex kernel.  Returns (state', (16, n) canonical outputs)."""
+    return S.duplex_v(state, arr, start_pos, n)
 
 
 def absorb(state: torch.Tensor, arr: torch.Tensor,
            start_pos: int) -> torch.Tensor:
     """Absorb the columns of (16, k) canonical ``arr`` with duplex
     semantics, starting at absorb position ``start_pos``."""
-    pos = start_pos
-    for i in range(arr.shape[1]):
-        if pos == RATE:
-            state = permute_state(state)
-            pos = 0
-        state = torch.cat([arr[:, i:i + 1], state[:, 1:]], dim=1)
-        pos = 1
-    return state
+    return duplex(state, arr, start_pos, 0)[0]
 
 
 def squeeze(state: torch.Tensor, n: int):
     """n duplex squeezes -> (state', (16, n) canonical outputs)."""
-    outs = []
-    for _ in range(n):
-        state = permute_state(state)
-        outs.append(state[:, :1])
-    return state, torch.cat(outs, dim=1)
+    return duplex(state, None, 0, n)
 
 
 # ---------------------------------------------------------------------------

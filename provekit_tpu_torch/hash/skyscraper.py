@@ -17,11 +17,14 @@ string by 16 bytes and applies an 8-bit S-box to every byte
 ``compress(l, r) = permute(l, r).left + l`` (``reference.rs:41-46``).
 
 The batched implementation keeps a ``(16, n)`` canonical digit-plane tensor
-per state element.  ``permute`` and ``compress`` are the kernels of this
-module (``permute_v``, ``compress_v``): on a CUDA tensor they launch
-``csrc/skyscraper.cu``; on a CPU tensor they run ``permute_plain`` /
-``compress_plain``, the same functions in plain torch.  Round constants are protocol
-constants taken from ``skyscraper/core/src/constants.rs:30-49``.
+per state element.  The kernels of this module, all in
+``csrc/skyscraper.cu``: ``compress_v`` (one compression per pair),
+``compress_fold_v`` (a Merkle leaf folded left to right in one launch),
+``permute_v`` (one permutation per pair) and ``duplex_v`` (the sponge: a
+whole absorb or squeeze in one launch).  On a CUDA tensor each launches its
+kernel or raises; on a CPU tensor it runs its ``*_plain`` twin, the same
+function in plain torch.  Round constants are protocol constants taken from
+``skyscraper/core/src/constants.rs:30-49``.
 """
 
 from __future__ import annotations
@@ -143,6 +146,48 @@ def compress_plain(l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return V.add_mod(_ladder_plain(l, r)[0], l)
 
 
+def compress_fold_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """(16, leaf_size, n) -> (16, n): each leaf's elements folded left to
+    right with :func:`compress_plain`."""
+    h = leaves[:, 0, :]
+    for i in range(1, leaves.shape[1]):
+        h = compress_plain(h, leaves[:, i, :])
+    return h
+
+
+def duplex_plain(state: torch.Tensor, arr: torch.Tensor | None,
+                 start_pos: int, n: int):
+    """The sponge's duplex in plain torch, on a (16, 2) canonical state:
+    absorb the columns of (16, k) ``arr`` from absorb position
+    ``start_pos`` (rate 1: a full position permutes first), then squeeze
+    ``n`` outputs.  Returns (state', (16, n) outputs)."""
+    l, r = state[:, :1], state[:, 1:]
+    pos = start_pos
+    for i in range(0 if arr is None else arr.shape[1]):
+        if pos == 1:
+            l, r = permute_plain(l, r)
+        l = arr[:, i:i + 1]
+        pos = 1
+    outs = []
+    for _ in range(n):
+        l, r = permute_plain(l, r)
+        outs.append(l)
+    return (torch.cat([l, r], dim=1),
+            torch.cat(outs, dim=1) if outs else state.new_empty((16, 0)))
+
+
+def duplex_permutations(k: int, start_pos: int, n: int) -> int:
+    """Permutations of one duplex call: one before every absorbed unit that
+    finds the position full, one per squeezed output."""
+    return n + (k - 1 + start_pos if k else 0)
+
+
+_PK_COMPRESS = K.Entry("pk_compress")
+_PK_COMPRESS_FOLD = K.Entry("pk_compress_fold")
+_PK_PERMUTE = K.Entry("pk_permute")
+_PK_DUPLEX = K.Entry("pk_duplex")
+
+
 def _views(name: str, l: torch.Tensor, r: torch.Tensor):
     dev = K.check_cuda_int32(name, l, r)
     shape = torch.broadcast_shapes(l.shape, r.shape)
@@ -162,8 +207,8 @@ def permute_v(l: torch.Tensor, r: torch.Tensor):
     dev, n, (lv, l_rs, l_cs), (rv, r_rs, r_cs) = _views("permute", l, r)
     lo = torch.empty((16, n), dtype=V.I32, device=dev)
     ro = torch.empty((16, n), dtype=V.I32, device=dev)
-    K.launch("pk_permute", dev, lv.data_ptr(), l_rs, l_cs, rv.data_ptr(),
-             r_rs, r_cs, lo.data_ptr(), ro.data_ptr(), n)
+    _PK_PERMUTE(dev, lv.data_ptr(), l_rs, l_cs, rv.data_ptr(), r_rs, r_cs,
+                lo.data_ptr(), ro.data_ptr(), n)
     permute_v.launches += 1
     return lo, ro
 
@@ -180,10 +225,68 @@ def compress_v(l: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return compress_plain(l, r)
     dev, n, (lv, l_rs, l_cs), (rv, r_rs, r_cs) = _views("compress", l, r)
     out = torch.empty((16, n), dtype=V.I32, device=dev)
-    K.launch("pk_compress", dev, lv.data_ptr(), l_rs, l_cs, rv.data_ptr(),
-             r_rs, r_cs, out.data_ptr(), n)
+    _PK_COMPRESS(dev, lv.data_ptr(), l_rs, l_cs, rv.data_ptr(), r_rs, r_cs,
+                 out.data_ptr(), n)
     compress_v.launches += 1
     return out
 
 
 compress_v.launches = 0
+
+
+def compress_fold_v(leaves: torch.Tensor) -> torch.Tensor:
+    """(16, leaf_size, n) canonical leaves -> (16, n) digests, each leaf's
+    elements folded left to right by the compression.
+
+    A CPU operand takes :func:`compress_fold_plain`; a CUDA operand
+    launches ``pk_compress_fold`` once, any strides (counted in
+    ``compress_fold_v.launches``), or raises."""
+    if leaves.device.type == "cpu":
+        return compress_fold_plain(leaves)
+    dev = K.check_cuda_int32("compress_fold", leaves)
+    if leaves.dim() != 3 or leaves.shape[1] < 1:
+        raise ValueError(f"compress_fold: expected (16, leaf_size, n) "
+                         f"leaves, got {tuple(leaves.shape)}")
+    n = leaves.shape[2]
+    out = torch.empty((16, n), dtype=V.I32, device=dev)
+    rs, is_, cs = leaves.stride()
+    _PK_COMPRESS_FOLD(dev, leaves.data_ptr(), leaves.shape[1], rs, is_, cs,
+                      out.data_ptr(), n)
+    compress_fold_v.launches += 1
+    return out
+
+
+compress_fold_v.launches = 0
+
+
+def duplex_v(state: torch.Tensor, arr: torch.Tensor | None, start_pos: int,
+             n: int):
+    """The sponge's duplex (see :func:`duplex_plain`) in one launch:
+    absorb the k columns of ``arr`` (None for none) from ``start_pos``,
+    then squeeze ``n``.  Returns (state', (16, n) outputs), two views of one
+    (16, 2 + n) block.
+
+    A CPU state takes :func:`duplex_plain`; a CUDA state launches
+    ``pk_duplex`` (counted in ``duplex_v.launches``, its permutations in
+    ``duplex_v.permutations``) or raises."""
+    k = 0 if arr is None else arr.shape[1]
+    on_cpu = arr is None or arr.device.type == "cpu"
+    if state.device.type == "cpu" and on_cpu:
+        return duplex_plain(state, arr, start_pos, n)
+    dev = K.check_cuda_int32("duplex", state, *(() if arr is None else (arr,)))
+    if tuple(state.shape) != (16, 2) or start_pos not in (0, 1):
+        raise ValueError(f"duplex: expected a (16, 2) state and start_pos 0 "
+                         f"or 1, got {tuple(state.shape)}, {start_pos}")
+    out = torch.empty((16, 2 + n), dtype=V.I32, device=dev)
+    a_ptr, a_rs, a_cs = ((0, 0, 0) if arr is None
+                         else (arr.data_ptr(), arr.stride(0), arr.stride(1)))
+    _PK_DUPLEX(dev, state.data_ptr(), state.stride(0), state.stride(1),
+               a_ptr, a_rs, a_cs, k, start_pos, n, out.data_ptr(),
+               out.stride(0))
+    duplex_v.launches += 1
+    duplex_v.permutations += duplex_permutations(k, start_pos, n)
+    return out[:, :2], out[:, 2:]
+
+
+duplex_v.launches = 0
+duplex_v.permutations = 0

@@ -6,7 +6,7 @@ the checkout; one ``nvcc`` per source, all started together.  A library's
 file name carries a hash of its source, the shared header and the flags, so
 an edited source is rebuilt.  The libraries are loaded with ``ctypes``:
 every pointer and the stream pass as ``c_void_p``, every C entry point
-returns ``cudaGetLastError()`` after its launch, and :func:`launch` raises
+returns ``cudaGetLastError()`` after its launch, and :class:`Entry` raises
 when that is not 0.  Nothing here runs at import time: the CPU tests import
 every module of the port on a machine with no ``nvcc``.
 """
@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "provekit_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -40,7 +40,10 @@ SIGNATURES = {
         "pk_butterfly": [_P, _P, _I64, _P, _I64, _I32, _I32, _P]},
     "skyscraper.cu": {
         "pk_compress": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
-        "pk_permute": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I64, _P]},
+        "pk_compress_fold": [_P, _I32, _I64, _I64, _I64, _P, _I64, _P],
+        "pk_permute": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _I64, _P],
+        "pk_duplex": [_P, _I64, _I64, _P, _I64, _I64, _I32, _I32, _I32, _P,
+                      _I64, _P]},
     "mont_mul_mma.cu": {
         "pk_mont_mul_mma": [_P, _P, _P, _P, _I64, _P]},
 }
@@ -67,9 +70,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> list[Path]:
+def build() -> dict[str, str]:
     """Compile every csrc/*.cu that is not up to date, one nvcc per source,
-    all running at once; returns the libraries' paths."""
+    all running at once; returns, for each source compiled now, what ptxas
+    said of its kernels (registers, shared memory, spills)."""
     outs = {src: library_path(src) for src in SIGNATURES}
     jobs = []
     for src, out in outs.items():
@@ -80,16 +84,17 @@ def build() -> list[Path]:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
         jobs.append((src, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
+    failed, reports = [], {}
     for src, out, tmp, proc in jobs:
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{src} ({proc.returncode}):\n{stdout}\n{stderr}")
         else:
             os.replace(tmp, out)
+            reports[src] = stderr
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    return list(outs.values())
+    return reports
 
 
 def lib() -> dict:
@@ -111,15 +116,25 @@ def lib() -> dict:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call entry point ``name`` on ``device``'s current stream; raise on a
-    launch error.  ``args`` exclude the trailing stream argument."""
-    fn = lib()[name]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+class Entry:
+    """One C entry point, resolved at its first launch and kept, so that a
+    launch takes no lock and no lookup.  ``entry(device, *args)`` calls it
+    on ``device``'s current stream (``args`` exclude the trailing stream
+    argument) and raises on a launch error."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.fn = None
+
+    def __call__(self, device: torch.device, *args) -> None:
+        fn = self.fn
+        if fn is None:
+            fn = self.fn = lib()[self.name]
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name}: CUDA launch failed with error {err}")
 
 
 def check_cuda_int32(name: str, *tensors: torch.Tensor) -> torch.device:

@@ -5,7 +5,8 @@ turns one round's (16, 1) sums into the wire messages, absorbs them into the
 device sponge, squeezes the round challenge and returns it in canonical and
 Montgomery form.  The port runs every round this way (the JAX package's
 whole-segment fused kernels emit the same bytes); every step starts right
-after a squeeze (absorb_pos == 0), so the absorb/squeeze pattern is static.
+after a squeeze (absorb_pos == 0), so the absorb/squeeze pattern is static,
+and a step's absorb and squeeze are one launch of the duplex kernel.
 """
 
 from __future__ import annotations
@@ -14,21 +15,7 @@ import torch
 
 from ..fields import bn254 as F
 from ..fields import vector as V
-from ..fs.device import permute_state
-
-
-def _absorb_seq(state: torch.Tensor, units: list) -> torch.Tensor:
-    """Absorb canonical (16,1) units starting at absorb_pos == 0."""
-    for i, u in enumerate(units):
-        if i > 0:
-            state = permute_state(state)
-        state = torch.cat([u, state[:, 1:]], dim=1)
-    return state
-
-
-def _squeeze1(state: torch.Tensor):
-    state = permute_state(state)
-    return state, state[:, :1]
+from ..fs.device import duplex
 
 
 def _eval_poly_mont(coeffs: list, x: torch.Tensor) -> torch.Tensor:
@@ -70,10 +57,10 @@ def spartan_round_coeffs(f0, fm1, finf, claim, prefix, g, pm, sm, sfx,
 
 def whir_scalar_step(state: torch.Tensor, h0, h1, h2):
     """-> (state', msgs_canon (16,3), alpha_canon (16,1), alpha_mont)."""
-    msgs_c = [V.from_mont(x) for x in whir_round_messages(h0, h1, h2)]
-    state = _absorb_seq(state, msgs_c)
-    state, alpha_c = _squeeze1(state)
-    return state, torch.cat(msgs_c, dim=1), alpha_c, V.to_mont(alpha_c)
+    msgs = whir_round_messages(h0, h1, h2)
+    msgs_c = torch.cat([V.from_mont(x) for x in msgs], dim=1)
+    state, alpha_c = duplex(state, msgs_c, 0, 1)
+    return state, msgs_c, alpha_c, V.to_mont(alpha_c)
 
 
 def spartan_scalar_step(state: torch.Tensor, f0, fm1, finf, claim, prefix,
@@ -85,10 +72,9 @@ def spartan_scalar_step(state: torch.Tensor, f0, fm1, finf, claim, prefix,
     g = [g4[:, k:k + 1] for k in range(4)]
     cs = spartan_round_coeffs(f0, fm1, finf, claim, prefix, g,
                               pm, sm, sfx, rho, half_c)
-    cs_c = [V.from_mont(c) for c in cs]
-    state = _absorb_seq(state, cs_c)
-    state, alpha_c = _squeeze1(state)
+    cs_c = torch.cat([V.from_mont(c) for c in cs], dim=1)
+    state, alpha_c = duplex(state, cs_c, 0, 1)
     alpha_m = V.to_mont(alpha_c)
     claim = _eval_poly_mont(cs, alpha_m)
     prefix = V.add_mod(prefix, _eval_poly_mont(g, alpha_m))
-    return state, torch.cat(cs_c, dim=1), alpha_c, alpha_m, claim, prefix
+    return state, cs_c, alpha_c, alpha_m, claim, prefix

@@ -2,8 +2,9 @@
 
 Port of ``provekit_tpu/ops/merkle.py``: leaf digest = left fold of the 2-to-1
 compression over the leaf's field elements, inner node = compress(l, r),
-digests are field elements in canonical form.  Every level is one batched
-``compress_v`` call (the CUDA kernel on the card), all levels on the device.
+digests are field elements in canonical form.  The leaf digests are one
+``compress_fold_v`` launch, every inner level one batched ``compress_v``
+launch (the CUDA kernels on the card), all levels on the device.
 """
 
 from __future__ import annotations
@@ -42,10 +43,9 @@ class MerkleTree:
 
 def hash_leaves(leaves: torch.Tensor) -> torch.Tensor:
     """(16, leaf_size, n) -> (16, n) leaf digests (left-fold compress)."""
-    h = leaves[:, 0, :]
-    for i in range(1, leaves.shape[1]):
-        h = S.compress_v(h, leaves[:, i, :])
-    return h
+    if leaves.shape[1] == 1:
+        return leaves[:, 0, :]
+    return S.compress_fold_v(leaves)
 
 
 def commit_dev(leaves: torch.Tensor) -> MerkleTree:

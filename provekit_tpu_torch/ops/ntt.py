@@ -99,6 +99,10 @@ def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int,
     return torch.stack([u, t], dim=2).reshape(16, n)
 
 
+_ENTRIES = {name: K.Entry(f"pk_{name}") for name in ("ntt_stage",
+                                                     "butterfly")}
+
+
 def _launch_stage(wrapper, x: torch.Tensor, tw: torch.Tensor, s: int,
                   chunk: int) -> torch.Tensor:
     """Launch ``pk_<wrapper name>`` on CUDA operands and count it in
@@ -115,8 +119,8 @@ def _launch_stage(wrapper, x: torch.Tensor, tw: torch.Tensor, s: int,
     x = x.contiguous()
     tw = tw.contiguous()
     out = torch.empty_like(x)
-    K.launch(f"pk_{name}", dev, x.data_ptr(), out.data_ptr(), n,
-             tw.data_ptr(), tw.shape[1], s, chunk.bit_length() - 1)
+    _ENTRIES[name](dev, x.data_ptr(), out.data_ptr(), n, tw.data_ptr(),
+                   tw.shape[1], s, chunk.bit_length() - 1)
     wrapper.launches += 1
     return out
 

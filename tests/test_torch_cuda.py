@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from provekit_tpu_torch.experiments import mxu_mont as M
 from provekit_tpu_torch.fields import bn254 as F
 from provekit_tpu_torch.fields import vector as V
@@ -103,6 +105,63 @@ def test_skyscraper_kernels(cuda):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     lv, rv = V.unpack(l[:, :1])[0], V.unpack(r[:, :1])[0]
     assert (V.unpack(got[0])[0], V.unpack(got[1])[0]) == S.permute(lv, rv)
+
+
+def edge_planes(device) -> torch.Tensor:
+    """The smoke run's edge values (``chip_smoke.edge_values``)."""
+    return V.pack(chip_smoke.edge_values(), device)
+
+
+def test_compress_kernel_edges_and_strides(cuda):
+    e = edge_planes(cuda)
+    k = e.shape[1]
+    el, er = e.repeat_interleave(k, dim=1), e.repeat(1, k)
+    assert torch.equal(S.compress_v(el, er), S.compress_plain(el, er))
+    assert V.unpack(S.compress_v(el, er)) == [
+        S.compress(x, y) for x, y in zip(V.unpack(el), V.unpack(er))]
+    # PoW's broadcast challenge (column stride 0), the tree's column stride 2
+    nonces = canonical(1 << 12, 21, cuda)
+    assert torch.equal(S.compress_v(e[:, 3:4], nonces),
+                       S.compress_plain(e[:, 3:4], nonces))
+    x = canonical(1 << 12, 22, cuda)
+    assert torch.equal(S.compress_v(x[:, 0::2], x[:, 1::2]),
+                       S.compress_plain(x[:, 0::2], x[:, 1::2]))
+
+
+@pytest.mark.parametrize("leaf_size", [1, 2, 3, 32])
+def test_compress_fold_kernel(cuda, leaf_size):
+    from provekit_tpu_torch.ops import merkle
+    n = 1000
+    leaves = canonical(leaf_size * n, 30 + leaf_size, cuda).reshape(
+        16, leaf_size, n)
+    e = edge_planes(cuda)
+    leaves[:, 0, :e.shape[1]] = e
+    before = S.compress_fold_v.launches
+    got = S.compress_fold_v(leaves)
+    assert S.compress_fold_v.launches == before + 1
+    assert torch.equal(got, S.compress_fold_plain(leaves))
+    assert torch.equal(merkle.hash_leaves(leaves), got)
+    # a strided view: every other element of a wider leaf
+    wide = torch.repeat_interleave(leaves, 2, dim=1)[:, 0::2, :]
+    assert torch.equal(S.compress_fold_v(wide), got)
+
+
+@pytest.mark.parametrize("k,start_pos,n", [(1, 0, 0), (1, 1, 0), (4, 0, 0),
+                                           (8, 1, 0), (0, 0, 1), (0, 0, 3),
+                                           (0, 0, 100), (3, 1, 2)])
+def test_duplex_kernel(cuda, k, start_pos, n):
+    e = edge_planes(cuda)
+    arr = torch.cat([e, canonical(8, 40, cuda)], dim=1)[:, :k] if k else None
+    for i in range(e.shape[1]):
+        state = torch.cat([e[:, i:i + 1], e[:, -1 - i:e.shape[1] - i]], 1)
+        before = (S.duplex_v.launches, S.duplex_v.permutations)
+        got_state, got = S.duplex_v(state, arr, start_pos, n)
+        want_state, want = S.duplex_plain(state, arr, start_pos, n)
+        assert torch.equal(got_state, want_state)
+        assert torch.equal(got, want)
+        assert (S.duplex_v.launches, S.duplex_v.permutations) == (
+            before[0] + 1,
+            before[1] + S.duplex_permutations(k, start_pos, n))
 
 
 def test_tiny_digest_on_card(cuda):
