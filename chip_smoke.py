@@ -18,9 +18,11 @@ Phases, one or more lines each:
      path's commitment; the tensor-core Montgomery product runs at 2^21
      beside the CIOS kernel.  The Skyscraper kernels also run at PoW's
      broadcast shape and on edge values (0, 1, P - 1, P - 2, 2^253, inputs
-     whose S-box output reaches 4P); the duplex absorbs and squeezes at the
-     transcript's counts, and the sponge's serial chain runs as 200
-     permute calls beside one 200-output squeeze;
+     whose S-box output reaches 4P); the leaf fold at every leaf shape of
+     the poseidon2 x1000 prove, beside single-step launches on the host's
+     wall clock; the duplex absorbs and squeezes at the transcript's counts
+     and in the fused round steps' calls, and the sponge's serial chain runs
+     as 200 permute calls beside one 200-output squeeze;
   4. the tensor-core Montgomery experiment (experiments/mxu_mont.py);
   5. the tiny scheme on the card: pinned proof digest, verify, tamper;
   6. poseidon2 x1000 at security 128 through the port's entry points:
@@ -54,17 +56,19 @@ T0 = time.perf_counter()
 # (NVIDIA's published figures, 700 W); 32-bit integer multiply-adds at 64 a
 # clock on each of the 132 SMs (compute capability 9.0, the
 # arithmetic-throughput table of the CUDA C++ Programming Guide) at the
-# card's maximum SM clock.  A 32 x 32 -> 64-bit limb product needs its low
-# and its high word: two multiply-adds.
+# card's maximum SM clock.
 HBM_BYTES_S = 3.35e12
 INT8_TENSOR_OPS_S = 1979e12
 SMS = 132
 INT32_MULADDS_PER_SM_CLOCK = 64
-# Limb products of the least work on 8 x 32-bit limbs: a Montgomery product
-# (CIOS: 64 + 64 + 8) and a Montgomery square (36 + 72); a Skyscraper
-# permutation needs 14 squares (its 4 bar steps multiply nothing).
-MONT_MUL_PRODUCTS = 136
-MONT_SQR_PRODUCTS = 108
+# Multiply-adds of the least work on 8 x 32-bit limbs.  A 32 x 32 -> 64-bit
+# limb product needs its low and its high word: two.  A reduction factor
+# m = u[i] * N' mod 2^32 needs only its low word: one.  A Montgomery product
+# (CIOS) takes 64 + 64 limb products and 8 factors, a Montgomery square
+# 36 + 64 and 8; a Skyscraper permutation needs 14 squares (its 4 bar steps
+# multiply nothing).
+MONT_MUL_MULADDS = 2 * (64 + 64) + 8
+MONT_SQR_MULADDS = 2 * (36 + 64) + 8
 LADDER_SQUARES = 14
 PLANE_BYTES = 64  # one field element: 16 digit planes of int32
 
@@ -86,12 +90,11 @@ def peak_rates(sm_clock_mhz: float) -> dict:
 
 
 def mont_mul_ops(n: int) -> dict:
-    return {"int32_muladd": 2 * MONT_MUL_PRODUCTS * n}
+    return {"int32_muladd": MONT_MUL_MULADDS * n}
 
 
 def ladder_ops(permutations: int) -> dict:
-    return {"int32_muladd": 2 * MONT_SQR_PRODUCTS * LADDER_SQUARES
-            * permutations}
+    return {"int32_muladd": MONT_SQR_MULADDS * LADDER_SQUARES * permutations}
 
 
 def bound(nbytes: float, ops: dict, rates: dict) -> tuple[float, str]:
@@ -134,6 +137,31 @@ def back_to_back_ms(torch, fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(torch, fn, reps: int = 1) -> float:
+    """Median host milliseconds of ``fn()`` from a synchronized card to a
+    synchronized card, after one warm-up run: the host's launch work
+    counts, as it does in a prove."""
+    import statistics
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def fold_by_steps(S, leaves):
+    """A (16, leaf_size, n) leaf fold as leaf_size - 1 single-step compress
+    launches (what ``merkle.hash_leaves`` ran before the fold kernel)."""
+    h = leaves[:, 0, :]
+    for i in range(1, leaves.shape[1]):
+        h = S.compress_v(h, leaves[:, i, :])
+    return h
 
 
 def timed_once(torch, fn):
@@ -272,6 +300,7 @@ def phase_kernels(torch, dev, rates):
         f"{rows.rows['mont_mul']['ms']:.4f} ms")
 
     phase_skyscraper(torch, rows, dev, a, b)
+    phase_poseidon_leaves(torch, rng, rows, dev)
     del a, b, coeffs
 
     # the butterfly at the sha256 x100 path's second-pass stages: (16, 2^25),
@@ -327,25 +356,6 @@ def phase_kernels(torch, dev, rates):
     return rows.rows
 
 
-def edge_values() -> list:
-    """Canonical inputs at the edges of the ladder's arithmetic: 0, 1, 2,
-    P - 1, P - 2, 2^253, 2^253 - 1, 2^256 mod P, P // 2, and four values
-    whose rotated, S-boxed bytes reach 4P before bar's reduction."""
-    import numpy as np
-    from provekit_tpu_torch.fields import bn254 as F
-    from provekit_tpu_torch.hash import skyscraper as S
-    vals = [0, 1, 2, F.P - 1, F.P - 2, 1 << 253, (1 << 253) - 1, F.R,
-            F.P // 2]
-    rng = np.random.default_rng(SEED)
-    while len(vals) < 13:
-        x = int.from_bytes(rng.bytes(32), "little") % F.P
-        b = F.to_bytes_le(x)
-        if int.from_bytes(bytes(S.sbox(v) for v in b[16:] + b[:16]),
-                          "little") >= 4 * F.P:
-            vals.append(x)
-    return vals
-
-
 def phase_skyscraper(torch, rows, dev, a, b):
     """K4 and K5 (csrc/skyscraper.cu) against their plain versions: compress
     at 2^17 and 2^20, at PoW's broadcast shape and on edge values; the leaf
@@ -381,7 +391,7 @@ def phase_skyscraper(torch, rows, dev, a, b):
     rows.check("compress", "PoW: (16, 1) challenge against 2^16 nonces",
                S.compress_v(ch, nonces), S.compress_plain(ch, nonces))
 
-    edge = V.pack(edge_values(), dev)
+    edge = V.pack(S.edge_values(SEED), dev)
     e = edge.shape[1]
     el, er = edge.repeat_interleave(e, dim=1), edge.repeat(1, e)
     rows.check("compress", f"edge values, {e * e} pairs",
@@ -409,6 +419,13 @@ def phase_skyscraper(torch, rows, dev, a, b):
             rows.check("duplex", f"absorb k={k} from position {start}",
                        torch.cat(S.duplex_v(state, arr, start, 0), 1),
                        torch.cat(S.duplex_plain(state, arr, start, 0), 1))
+    # the fused round steps: absorb a round's 3 (WHIR) or 4 (Spartan)
+    # messages from position 0 and squeeze its challenge, in one launch
+    for k in (3, 4):
+        arr = units[:, :k]
+        rows.check("duplex", f"absorb k={k} from position 0, squeeze 1",
+                   torch.cat(S.duplex_v(state, arr, 0, 1), 1),
+                   torch.cat(S.duplex_plain(state, arr, 0, 1), 1))
     for n in (1, 3, 100):
         rows.check("duplex", f"squeeze n={n}",
                    torch.cat(S.duplex_v(state, None, 0, n), 1),
@@ -436,14 +453,6 @@ def phase_skyscraper(torch, rows, dev, a, b):
             l, r = fn(l, r)
         return torch.cat([l, r], dim=1)
 
-    def wall_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
     # the plain squeeze is the same 200 permute_plain calls, and its final
     # state the chain's
     state = torch.cat([l0, r0], dim=1)
@@ -463,11 +472,57 @@ def phase_skyscraper(torch, rows, dev, a, b):
                source="skyscraper.cu", replaces=f"{TPU_KERNELS}:297")
     rows.check("duplex", f"squeeze of {calls} against {calls} permute calls",
                got_state, chain(S.permute_v))
+    chain_ms = wall_ms(torch, lambda: chain(S.permute_v))
+    squeeze_ms = wall_ms(torch, lambda: S.duplex_v(state, None, 0, calls))
     log(f"[3] serial chain of {calls} permutations, host wall clock per "
-        f"permutation: permute calls "
-        f"{wall_ms(lambda: chain(S.permute_v)) / calls:.4f} ms, one duplex "
-        f"squeeze "
-        f"{wall_ms(lambda: S.duplex_v(state, None, 0, calls)) / calls:.4f} ms")
+        f"permutation: permute calls {chain_ms / calls:.4f} ms, one duplex "
+        f"squeeze {squeeze_ms / calls:.4f} ms")
+
+
+def poseidon_leaf_shapes() -> list:
+    """(leaf_size, n_leaves) of every Merkle commitment of a poseidon2
+    x1000 prove: the witness (m = 20) and the blinding (m = 8) WHIR
+    configurations, each a batch of two, and their rounds."""
+    from provekit_tpu_torch.whir.parameters import WhirConfig
+    shapes = []
+    for m in (20, 8):
+        cfg = WhirConfig(num_variables=m, batch_size=2, security_level=128)
+        fold = 1 << cfg.initial_folding_factor
+        shapes.append((2 * fold, (1 << cfg.starting_log_domain) // fold))
+        for r, rc in enumerate(cfg.rounds):
+            rfold = 1 << rc.folding_factor
+            shapes.append((rfold, (1 << (cfg.starting_log_domain - r - 1))
+                           // rfold))
+    return shapes
+
+
+def phase_poseidon_leaves(torch, rng, rows, dev):
+    """The leaf fold at every leaf shape of the poseidon2 x1000 prove (the
+    witness commitment's 32-element leaves, the rounds' 16-element ones),
+    exact against its plain version and against single-step launches; and
+    the host wall clock of each, since on these shapes the launches, not
+    the ladder, can take the time."""
+    from provekit_tpu_torch.hash import skyscraper as S
+    fold_ms = steps_ms = 0.0
+    steps = 0
+    for size, n in poseidon_leaf_shapes():
+        leaves = random_planes(torch, rng, size * n, dev).reshape(16, size, n)
+        shape = f"(16, {size}, {n})"
+        got = S.compress_fold_v(leaves)
+        rows.check("compress_fold", f"{shape} poseidon leaves", got,
+                   S.compress_fold_plain(leaves))
+        rows.check("compress_fold", f"{shape} against {size - 1} "
+                   "single-step launches", got, fold_by_steps(S, leaves))
+        f_ms = wall_ms(torch, lambda: S.compress_fold_v(leaves), 5)
+        s_ms = wall_ms(torch, lambda: fold_by_steps(S, leaves), 5)
+        log(f"[3] leaf hash of {shape}, host wall clock: one fold launch "
+            f"{f_ms:.4f} ms, {size - 1} single-step launches {s_ms:.4f} ms")
+        fold_ms += f_ms
+        steps_ms += s_ms
+        steps += size - 1
+    log(f"[3] the poseidon2 x1000 prove's leaf hashing, host wall clock: "
+        f"{len(poseidon_leaf_shapes())} fold launches {fold_ms:.4f} ms, "
+        f"{steps} single-step launches {steps_ms:.4f} ms")
 
 
 def phase_leaves(torch, rng, rows, dev):
@@ -512,10 +567,7 @@ def phase_leaves(torch, rng, rows, dev):
     del want
 
     def single_steps():
-        h = leaves[:, 0, :]
-        for i in range(1, size):
-            h = S.compress_v(h, leaves[:, i, :])
-        return h
+        return fold_by_steps(S, leaves)
 
     rows.check("compress_fold",
                f"{shape} against {size - 1} single-step launches", fold,

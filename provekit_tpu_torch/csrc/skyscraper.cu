@@ -12,9 +12,10 @@
 // compress(l, r) = permute(l, r).left + l.
 //
 // What bounds it on the H100: 32-bit integer multiply-adds.  One compress
-// needs at least 14 Montgomery squares of 108 limb products (two
-// multiply-adds each: low and high word) against 192 bytes of plane
-// traffic, so compress and the fold are bound by operations; the duplex runs
+// needs at least 14 Montgomery squares, each 100 limb products (two
+// multiply-adds each: low and high word) and 8 reduction factors (low word
+// only: one each), 208 multiply-adds, against 192 bytes of plane traffic,
+// so compress and the fold are bound by operations; the duplex runs
 // one thread on the sponge's serial chain and is bound by the latency of the
 // ladder's dependent instructions.
 // Design: one thread per element (per leaf for the fold), the whole ladder

@@ -105,30 +105,6 @@ def scalar_index_u32(canon: torch.Tensor, mask: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# device duplex sponge
-
-
-def duplex(state: torch.Tensor, arr: torch.Tensor | None, start_pos: int,
-           n: int):
-    """Absorb the columns of (16, k) canonical ``arr`` (None for none) from
-    absorb position ``start_pos``, then squeeze ``n``: one launch of the
-    duplex kernel.  Returns (state', (16, n) canonical outputs)."""
-    return S.duplex_v(state, arr, start_pos, n)
-
-
-def absorb(state: torch.Tensor, arr: torch.Tensor,
-           start_pos: int) -> torch.Tensor:
-    """Absorb the columns of (16, k) canonical ``arr`` with duplex
-    semantics, starting at absorb position ``start_pos``."""
-    return duplex(state, arr, start_pos, 0)[0]
-
-
-def squeeze(state: torch.Tensor, n: int):
-    """n duplex squeezes -> (state', (16, n) canonical outputs)."""
-    return duplex(state, None, 0, n)
-
-
-# ---------------------------------------------------------------------------
 # packing helpers for the single final fetch
 
 
@@ -178,7 +154,7 @@ class DeviceProverState:
         """Absorb (16, k) CANONICAL device scalars."""
         k = arr.shape[1]
         self.checker.expect("A", k)
-        self.state = absorb(self.state, arr, self.absorb_pos)
+        self.state = S.duplex_v(self.state, arr, self.absorb_pos, 0)[0]
         self.absorb_pos = 1
         self._order.append(("A", arr))
 
@@ -188,7 +164,7 @@ class DeviceProverState:
     def challenge_scalars_dev(self, n: int) -> torch.Tensor:
         """Squeeze n challenges as (16, n) canonical device scalars."""
         self.checker.expect("S", n)
-        self.state, out = squeeze(self.state, n)
+        self.state, out = S.duplex_v(self.state, None, 0, n)
         self.absorb_pos = 0
         return out
 
@@ -197,7 +173,7 @@ class DeviceProverState:
         scalar; the wire carries 8 big-endian bytes (spongefish-pow
         framing), the sponge one unit (the nonce value)."""
         self.checker.expect("A", 8)
-        self.state = absorb(self.state, arr, self.absorb_pos)
+        self.state = S.duplex_v(self.state, arr, self.absorb_pos, 0)[0]
         self.absorb_pos = 1
         self._order.append(("P", arr))
 

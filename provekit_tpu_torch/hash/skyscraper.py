@@ -99,6 +99,23 @@ def compress(l: int, r: int) -> int:
     return (permute(l, r)[0] + l) % F.P
 
 
+def edge_values(seed: int) -> list[int]:
+    """Canonical inputs at the edges of the ladder's arithmetic, to test a
+    batched version against :func:`permute`: 0, 1, 2, P - 1, P - 2, 2^253,
+    2^253 - 1, 2^256 mod P, P // 2, and four values (drawn from ``seed``)
+    whose rotated, S-boxed bytes reach 4P before bar's reduction."""
+    vals = [0, 1, 2, F.P - 1, F.P - 2, 1 << 253, (1 << 253) - 1, F.R,
+            F.P // 2]
+    rng = np.random.default_rng(seed)
+    while len(vals) < 13:
+        x = int.from_bytes(rng.bytes(32), "little") % F.P
+        b = F.to_bytes_le(x)
+        if int.from_bytes(bytes(sbox(v) for v in b[16:] + b[:16]),
+                          "little") >= 4 * F.P:
+            vals.append(x)
+    return vals
+
+
 # ---------------------------------------------------------------------------
 # Batched version on (16, n) canonical digit planes
 

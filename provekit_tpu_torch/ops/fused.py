@@ -15,7 +15,7 @@ import torch
 
 from ..fields import bn254 as F
 from ..fields import vector as V
-from ..fs.device import duplex
+from ..hash import skyscraper as S
 
 
 def _eval_poly_mont(coeffs: list, x: torch.Tensor) -> torch.Tensor:
@@ -59,7 +59,7 @@ def whir_scalar_step(state: torch.Tensor, h0, h1, h2):
     """-> (state', msgs_canon (16,3), alpha_canon (16,1), alpha_mont)."""
     msgs = whir_round_messages(h0, h1, h2)
     msgs_c = torch.cat([V.from_mont(x) for x in msgs], dim=1)
-    state, alpha_c = duplex(state, msgs_c, 0, 1)
+    state, alpha_c = S.duplex_v(state, msgs_c, 0, 1)
     return state, msgs_c, alpha_c, V.to_mont(alpha_c)
 
 
@@ -73,7 +73,7 @@ def spartan_scalar_step(state: torch.Tensor, f0, fm1, finf, claim, prefix,
     cs = spartan_round_coeffs(f0, fm1, finf, claim, prefix, g,
                               pm, sm, sfx, rho, half_c)
     cs_c = torch.cat([V.from_mont(c) for c in cs], dim=1)
-    state, alpha_c = duplex(state, cs_c, 0, 1)
+    state, alpha_c = S.duplex_v(state, cs_c, 0, 1)
     alpha_m = V.to_mont(alpha_c)
     claim = _eval_poly_mont(cs, alpha_m)
     prefix = V.add_mod(prefix, _eval_poly_mont(g, alpha_m))

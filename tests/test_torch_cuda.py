@@ -13,8 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-
 from provekit_tpu_torch.experiments import mxu_mont as M
 from provekit_tpu_torch.fields import bn254 as F
 from provekit_tpu_torch.fields import vector as V
@@ -108,8 +106,8 @@ def test_skyscraper_kernels(cuda):
 
 
 def edge_planes(device) -> torch.Tensor:
-    """The smoke run's edge values (``chip_smoke.edge_values``)."""
-    return V.pack(chip_smoke.edge_values(), device)
+    """The ladder's edge values (``skyscraper.edge_values``)."""
+    return V.pack(S.edge_values(20261016), device)
 
 
 def test_compress_kernel_edges_and_strides(cuda):
@@ -148,7 +146,8 @@ def test_compress_fold_kernel(cuda, leaf_size):
 
 @pytest.mark.parametrize("k,start_pos,n", [(1, 0, 0), (1, 1, 0), (4, 0, 0),
                                            (8, 1, 0), (0, 0, 1), (0, 0, 3),
-                                           (0, 0, 100), (3, 1, 2)])
+                                           (0, 0, 100), (3, 1, 2),
+                                           (3, 0, 1), (4, 0, 1)])
 def test_duplex_kernel(cuda, k, start_pos, n):
     e = edge_planes(cuda)
     arr = torch.cat([e, canonical(8, 40, cuda)], dim=1)[:, :k] if k else None

@@ -14,8 +14,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-
 from provekit_tpu.hash import skyscraper as JS
 from provekit_tpu_torch import convert
 from provekit_tpu_torch.fields import bn254 as F
@@ -125,10 +123,10 @@ def test_cuda_round_constants_match():
 
 
 def _edge_values() -> list[int]:
-    """The smoke run's edge values (0, 1, 2, P - 1, P - 2, 2^253, ...,
-    four whose S-box output reaches 4P) and eight seeded random ones."""
+    """The ladder's edge values (0, 1, 2, P - 1, P - 2, 2^253, ..., four
+    whose S-box output reaches 4P) and eight seeded random ones."""
     rng = np.random.default_rng(11)
-    return chip_smoke.edge_values() + [
+    return S.edge_values(20261016) + [
         int.from_bytes(rng.bytes(32), "little") % F.P for _ in range(8)]
 
 
@@ -196,6 +194,24 @@ def test_duplex_squeeze_matches_jax(n):
     got_state, got = S.duplex_v(state, None, 0, n)
     want_state, want = JD._squeeze_jit(
         jnp.asarray(convert.planes_to_numpy(state)), n)
+    assert np.array_equal(convert.planes_to_numpy(got), np.asarray(want))
+    assert np.array_equal(convert.planes_to_numpy(got_state),
+                          np.asarray(want_state))
+
+
+@pytest.mark.parametrize("k", [3, 4])
+def test_duplex_fused_step_matches_jax(k):
+    """A fused round step's one call (absorb a round's k messages from
+    position 0, squeeze its challenge) against the JAX absorb then
+    squeeze."""
+    from provekit_tpu.fs import device as JD
+    vals = _edge_values()
+    state = _state([vals[k], vals[11]])
+    arr = V.pack(vals[5:5 + k], "cpu")
+    got_state, got = S.duplex_v(state, arr, 0, 1)
+    mid = JD._absorb_jit(jnp.asarray(convert.planes_to_numpy(state)),
+                         jnp.asarray(convert.planes_to_numpy(arr)), k, 0)
+    want_state, want = JD._squeeze_jit(mid, 1)
     assert np.array_equal(convert.planes_to_numpy(got), np.asarray(want))
     assert np.array_equal(convert.planes_to_numpy(got_state),
                           np.asarray(want_state))
