@@ -33,7 +33,17 @@ Phases, one or more lines each:
      goes to chiprun_out/chip_smoke_profile_poseidon.txt), verify, and a
      flipped byte rejected;
   7. sha256 x100 (RS domain 2^25) at security 128, the same stages, with a
-     progress line per stage.
+     progress line per stage;
+  8. the front door: each Noir fixture of tests/fixtures through the CLI
+     (prepare; prove from a Prover.toml through the ACVM and Brillig VM,
+     whose witness values are checked; verify), then the passport circuit
+     (passport_test_vector(seed=1) with its ECDSA P-256 signature, 1,590,897
+     constraints, RS domain 2^24) at security 128: its circuit and witness
+     JSON, the CLI's prepare and prove --verify in this process (each CLI
+     span, the launch counts around prove, the peak device memory, the
+     proof size), and the verify service as a child process on its scheme,
+     which must answer 200, 400, 400 and 404 (the proof, a flipped byte, a
+     malformed body, a wrong path).
 The line before the last is the kernel JSON, the one before it the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.  Any
 failure exits non-zero before them.  The script needs a CUDA card and the
@@ -105,6 +115,56 @@ def bound(nbytes: float, ops: dict, rates: dict) -> tuple[float, str]:
         times[f"operations ({unit})"] = count / rates[unit] * 1e3
     by = max(times, key=times.get)
     return times[by], "bytes" if by == "bytes" else "operations"
+
+
+def fixture_cases() -> dict:
+    """Noir fixture (tests/fixtures/<name>.json) -> (its Prover.toml inputs
+    by ABI name, the ACVM witness values tests/test_acir_fixtures.py
+    asserts for them)."""
+    from provekit_tpu_torch.fields import bn254 as F
+    return {
+        "mul_chain": ({"x": 6, "y": 7}, {2: 42, 3: 42 * 42}),
+        "rom_reads": ({"x": 11, "y": 13}, {2: 11, 3: 13, 4: 143}),
+        "brillig_inverse": ({"x": 12345}, {1: F.inv(12345)}),
+        "range_and_xor": ({"a": 0xA5, "b": 0x3C},
+                          {2: 0xA5 & 0x3C, 3: 0xA5 ^ 0x3C}),
+    }
+
+
+def prover_toml(inputs: dict) -> str:
+    """A Prover.toml of scalar inputs, each a quoted decimal."""
+    return "".join(f'{name} = "{value}"\n' for name, value in inputs.items())
+
+
+def verify_requests(proof: bytes) -> list:
+    """(path, body, expected status) of the verify service's checks: the
+    proof, the proof with its middle byte flipped, a malformed body, and
+    the proof sent to a wrong path."""
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+
+    def body(transcript: bytes) -> bytes:
+        return json.dumps({"transcript": transcript.hex()}).encode()
+
+    return [("/api/v1/verify", body(proof), 200),
+            ("/api/v1/verify", body(bytes(bad)), 400),
+            ("/api/v1/verify", b'{"transcript": "not hex', 400),
+            ("/api/v1/prove", body(proof), 404)]
+
+
+def post(port: int, path: str, data: bytes, timeout: float = 600) -> int:
+    """HTTP status of a POST of ``data`` to ``path`` on this host (a
+    direct connection: no proxy setting applies)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=data,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        resp.read()
+        return resp.status
+    finally:
+        conn.close()
 
 
 def random_planes(torch, rng, n: int, device):
@@ -791,6 +851,198 @@ def prove_path(torch, dev, tag, name, build, counters, expect, profile_to,
     return launches
 
 
+# the passport circuit of passport_test_vector(seed=1) with its signature
+PASSPORT_CONSTRAINTS = 1_590_897
+PASSPORT_WITNESSES = 2_261_537
+
+
+def run_cli(argv, out_path):
+    """``cli.main(argv)`` in this process with its standard output written
+    to ``out_path``; returns its spans as (path, seconds) pairs, parents
+    first (the span tree starts empty for each call)."""
+    import contextlib
+    import io
+
+    from provekit_tpu_torch import cli
+    from provekit_tpu_torch.utils import profiling
+    profiling.GLOBAL.root.children.clear()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+    finally:
+        out_path.write_text(buf.getvalue())
+    spans = []
+
+    def walk(span, prefix):
+        for child in span.children:
+            spans.append((prefix + child.name, child.elapsed))
+            walk(child, prefix + child.name + "/")
+
+    walk(profiling.GLOBAL.root, "")
+    return spans
+
+
+def scheme_shape(constraints: int, witnesses: int) -> dict:
+    """m, m_0 and the witness RS domain's log size of the scheme that
+    ``prepare`` builds at security 128 (``WhirR1CSScheme.new_for_r1cs``)."""
+    from provekit_tpu_torch.protocol.scheme import next_power_of_two_log
+    from provekit_tpu_torch.whir.parameters import WhirConfig
+    m = next_power_of_two_log(witnesses) + 1
+    cfg = WhirConfig(num_variables=m, batch_size=2, security_level=128)
+    return {"m": m, "m_0": max(1, next_power_of_two_log(constraints)),
+            "rs_domain_log": cfg.starting_log_domain}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_server(root, nps, port, log_path):
+    """The verify service on ``nps`` as a child process, its output going
+    to ``log_path``."""
+    log = open(log_path, "w")
+    return subprocess.Popen(
+        [sys.executable, "-m", "provekit_tpu_torch.server", "--scheme",
+         str(nps), "--port", str(port)], cwd=root, stdout=log,
+        stderr=subprocess.STDOUT), log
+
+
+def wait_for_banner(proc, log_path, timeout: float) -> None:
+    deadline = time.perf_counter() + timeout
+    while "verify server on" not in log_path.read_text():
+        if proc.poll() is not None:
+            fail(f"the verify service exited with {proc.returncode}: "
+                 f"{log_path.read_text()[-2000:]}")
+        if time.perf_counter() > deadline:
+            fail(f"the verify service did not come up in {timeout} s")
+        time.sleep(0.5)
+
+
+def phase_front_door(torch, dev, counters, out_dir):
+    """[8] The port's front door: the Noir fixtures through the CLI
+    (prepare, prove from Prover.toml through the ACVM and Brillig VM,
+    verify), then the passport circuit at full width (prepare and prove
+    --verify through the CLI, in this process, the launches counted around
+    prove), then the verify service as a child process on the passport's
+    scheme.  Returns the passport prove's launch counts."""
+    from pathlib import Path
+
+    from provekit_tpu_torch.circuits import passport
+    from provekit_tpu_torch.io import files
+    from provekit_tpu_torch.utils import profiling
+
+    root = Path(__file__).resolve().parent
+    work = out_dir / "front_door"
+    work.mkdir(parents=True, exist_ok=True)
+    profiling.GLOBAL.sync = torch.cuda.synchronize
+
+    def cli_step(tag, argv, name):
+        t0 = time.perf_counter()
+        spans = run_cli(argv, work / f"{name}.txt")
+        log(f"[8] {tag}: {argv[0]} done in {time.perf_counter() - t0:.3f} s; "
+            + ", ".join(f"{p} {s:.3f} s" for p, s in spans))
+        return spans
+
+    for name, (inputs, expected) in fixture_cases().items():
+        toml = work / f"{name}.Prover.toml"
+        toml.write_text(prover_toml(inputs))
+        nps, np_ = work / f"{name}.nps", work / f"{name}.np"
+        cli_step(name, ["prepare", str(root / "tests" / "fixtures"
+                                       / f"{name}.json"), "-o", str(nps)],
+                 f"{name}_prepare")
+        wmap = files.read(nps, device=dev).generate_witness(toml.read_text())
+        got = {k: wmap.get(k) for k in expected}
+        if got != expected:
+            fail(f"{name}: ACVM witness values {got} != {expected}")
+        cli_step(name, ["prove", str(nps), str(toml), "-o", str(np_),
+                        "--verify"], f"{name}_prove")
+        cli_step(name, ["verify", str(nps), str(np_)], f"{name}_verify")
+        log(f"[8] {name}: Prover.toml {inputs} -> witness {got} as "
+            f"expected; proof {np_.stat().st_size} bytes, verified")
+
+    t0 = time.perf_counter()
+    dg1, sod, off, date, age, sig = passport.passport_test_vector(seed=1)
+    program, values = passport.passport_circuit(dg1, sod, off, date, age,
+                                                signature=sig)
+    circuit, witness = work / "passport_circuit.json", \
+        work / "passport_witness.json"
+    circuit.write_text(json.dumps({"program": files._enc(program)}))
+    witness.write_text(json.dumps({str(k): hex(v) for k, v in values.items()}))
+    log(f"[8] passport: circuit build and JSON in "
+        f"{time.perf_counter() - t0:.3f} s: {len(values)} ACIR witnesses, "
+        f"circuit {circuit.stat().st_size} bytes, witness "
+        f"{witness.stat().st_size} bytes")
+    del program, values
+
+    nps, np_ = work / "passport.nps", work / "passport.np"
+    cli_step("passport", ["prepare", str(circuit), "-o", str(nps)],
+             "passport_prepare")
+    stats = (work / "passport_prepare.txt").read_text()
+    if (f"R1CS: {PASSPORT_CONSTRAINTS} constraints, {PASSPORT_WITNESSES} "
+            "witnesses") not in stats:
+        fail(f"passport: unexpected R1CS size: {stats[-300:]}")
+    shape = scheme_shape(PASSPORT_CONSTRAINTS, PASSPORT_WITNESSES)
+    log(f"[8] passport: {PASSPORT_CONSTRAINTS} constraints, "
+        f"{PASSPORT_WITNESSES} witnesses, m={shape['m']} m_0={shape['m_0']}, "
+        f"RS domain 2^{shape['rs_domain_log']}; .nps {nps.stat().st_size} "
+        f"bytes")
+
+    # the service reads the scheme while this process proves
+    port = free_port()
+    server, server_log = start_server(root, nps, port,
+                                      work / "server_log.txt")
+    t_server = time.perf_counter()
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(counters)
+        cli_step("passport", ["prove", str(nps), str(witness), "-o",
+                              str(np_), "--verify"], "passport_prove")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        launches["duplex_permutations"] = counters["duplex"].permutations
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        if "self-verify: OK" not in (work / "passport_prove.txt").read_text():
+            fail("passport: the CLI's self-verify did not pass")
+        proof = files.read(np_).transcript
+        log(f"[8] passport: proof {len(proof)} bytes (.np "
+            f"{np_.stat().st_size}), self-verified; launches during the CLI "
+            f"prove: {launches}; butterfly launched: "
+            f"{launches['butterfly'] > 0}; peak device memory "
+            f"{peak_gib:.3f} GiB")
+
+        wait_for_banner(server, work / "server_log.txt", 900)
+        log(f"[8] verify service up on port {port}, "
+            f"{time.perf_counter() - t_server:.3f} s after its start")
+        for path, data, code in verify_requests(proof):
+            t0 = time.perf_counter()
+            got = post(port, path, data)
+            log(f"[8] POST {path} ({len(data)} bytes): {got} in "
+                f"{time.perf_counter() - t0:.3f} s (expected {code})")
+            if got != code:
+                fail(f"verify service answered {got} for {path}, "
+                     f"expected {code}")
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+        server_log.close()
+        profiling.GLOBAL.sync = None
+    # the large inputs stay out of what the run brings back
+    for path in (circuit, witness, nps):
+        path.unlink()
+    missing = [k for k in ("mont_mul", "ntt_stage", "compress",
+                           "compress_fold", "duplex") if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched by the passport CLI prove: {missing}")
+    return launches
+
+
 def main() -> int:
     from pathlib import Path
     import torch
@@ -824,6 +1076,8 @@ def main() -> int:
         torch, dev, "[7]", "sha256 x100",
         lambda: sha256.chain_circuit(100), counters, on_path + ["butterfly"],
         out_dir / "chip_smoke_profile_sha256.txt", False)
+    by_path["passport_cli"] = phase_front_door(torch, dev, counters, out_dir)
+    log(f"total {time.perf_counter() - T0:.3f} s")
 
     kernels = []
     for name, row in rows.items():

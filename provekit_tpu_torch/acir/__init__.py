@@ -1,3 +1,3 @@
-from . import model
+from . import abi, model, parse
 
-__all__ = ["model"]
+__all__ = ["abi", "model", "parse"]

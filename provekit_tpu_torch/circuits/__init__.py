@@ -1,3 +1,3 @@
-from . import poseidon, sha256
+from . import p256, passport, poseidon, sha256
 
-__all__ = ["poseidon", "sha256"]
+__all__ = ["p256", "passport", "poseidon", "sha256"]

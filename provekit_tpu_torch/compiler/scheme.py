@@ -36,10 +36,11 @@ class NoirProofScheme:
     acir_map: dict[int, int]
     witness_builders: list
     whir_for_witness: WhirR1CSScheme
+    abi: object = None  # acir.abi.Abi when compiled from a Noir artifact
 
     @classmethod
     def from_program(cls, program: acir.Program, security_level: int = 128,
-                     max_pow_bits: int | None = None, *,
+                     max_pow_bits: int | None = None, abi=None, *,
                      device="cuda") -> "NoirProofScheme":
         assert len(program.functions) == 1, "only one ACIR function supported"
         circuit = program.functions[0]
@@ -48,7 +49,8 @@ class NoirProofScheme:
             r1cs, security_level=security_level, max_pow_bits=max_pow_bits,
             device=device)
         return cls(program=program, r1cs=r1cs, acir_map=acir_map,
-                   witness_builders=builders, whir_for_witness=scheme)
+                   witness_builders=builders, whir_for_witness=scheme,
+                   abi=abi)
 
     @property
     def circuit(self) -> acir.Circuit:
@@ -91,3 +93,26 @@ class NoirProofScheme:
 
     def verify(self, proof: NoirProof) -> None:
         self.whir_for_witness.verify(self.r1cs, proof.transcript)
+
+    # -- witness generation (in-tree ACVM/Brillig) --------------------------
+
+    def generate_witness(self, inputs, foreign_handler=None) -> dict[int, int]:
+        """Execute the ACIR program to the full witness map.
+
+        ``inputs`` is either Prover.toml text, a flattened list of field
+        values in ABI order, or an already-initial witness dict (the
+        reference's ``nargo::ops::execute_program`` call, in tree).
+        """
+        from ..acir import execute as acvm
+        if isinstance(inputs, dict):
+            initial = inputs
+        else:
+            if isinstance(inputs, str):
+                from ..acir.abi import input_from_toml
+                if self.abi is None:
+                    raise ValueError(
+                        "TOML inputs need an ABI; attach one via scheme.abi "
+                        "or pass a flattened input list")
+                inputs = input_from_toml(self.abi, inputs)
+            initial = acvm.initial_witness_from_inputs(self.circuit, inputs)
+        return acvm.execute_program(self.program, initial, foreign_handler)

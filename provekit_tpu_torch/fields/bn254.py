@@ -65,7 +65,8 @@ def sqr(a: int) -> int:
 def inv(a: int) -> int:
     if a == 0:
         raise ZeroDivisionError("inverse of zero in Fr")
-    return pow(a, P - 2, P)
+    # extended Euclid: the same value as a^(P-2), about ten times faster
+    return pow(a, -1, P)
 
 
 def pow_(a: int, e: int) -> int:

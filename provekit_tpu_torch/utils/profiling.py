@@ -1,9 +1,10 @@
 """Span tree: wall time per named pipeline stage.
 
-Port of the ``span`` part of ``provekit_tpu/utils/profiling.py``.  Device
-work is asynchronous, so a span measures dispatch time unless the tree is
-given a ``sync`` callable (for instance ``torch.cuda.synchronize``), which
-then runs at every span exit so that each span holds its own device time.
+Port of the ``span`` part of ``provekit_tpu/utils/profiling.py`` and its
+``report``, without the device-memory column.  Device work is asynchronous,
+so a span measures dispatch time unless the tree is given a ``sync``
+callable (for instance ``torch.cuda.synchronize``), which then runs at every
+span exit so that each span holds its own device time.
 """
 
 from __future__ import annotations
@@ -39,6 +40,29 @@ class SpanTree:
                 self.sync()
             s.elapsed = time.perf_counter() - s.start
             self.stack.pop()
+
+    def report(self) -> str:
+        """The tree drawn with box characters, one span a line with its
+        wall time."""
+        lines = []
+
+        def human(x: float) -> str:
+            for unit, scale in (("s", 1), ("ms", 1e-3), ("us", 1e-6)):
+                if x >= scale:
+                    return f"{x / scale:7.2f} {unit}"
+            return f"{x * 1e9:7.2f} ns"
+
+        def walk(span, prefix, is_last):
+            branch = "└─" if is_last else "├─"
+            lines.append(f"{prefix}{branch} {span.name:<28}"
+                         f" {human(span.elapsed)}")
+            ext = "   " if is_last else "│  "
+            for i, child in enumerate(span.children):
+                walk(child, prefix + ext, i == len(span.children) - 1)
+
+        for i, child in enumerate(self.root.children):
+            walk(child, "", i == len(self.root.children) - 1)
+        return "\n".join(lines)
 
 
 GLOBAL = SpanTree()

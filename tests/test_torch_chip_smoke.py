@@ -6,6 +6,9 @@ operations over the card's peak: 32-bit integer multiply-adds at 132 SMs x
 product and one for each reduction factor (low word only).
 """
 
+import json
+import pathlib
+
 import pytest
 
 import chip_smoke as C
@@ -44,3 +47,68 @@ def test_bound_of_mont_mul_at_2_21_is_bytes():
     ops_ms = 2**21 * 264 / (132 * 64 * 1.98e9) * 1e3
     assert ops_ms == pytest.approx(0.03310, abs=1e-5)
     assert ops_ms < ms
+
+
+# -- phase 8's helpers -------------------------------------------------------
+
+
+def test_fixture_cases_are_the_acir_tests_inputs():
+    """Phase 8 gives each Noir fixture the inputs of
+    tests/test_acir_fixtures.py, by ABI name, and checks its witnesses."""
+    from provekit_tpu_torch.fields import bn254 as F
+    cases = C.fixture_cases()
+    fixtures = pathlib.Path(__file__).resolve().parent / "fixtures"
+    assert sorted(cases) == sorted(p.stem for p in fixtures.glob("*.json"))
+    for name, (inputs, _) in cases.items():
+        abi = json.loads((fixtures / f"{name}.json").read_text())["abi"]
+        assert [p["name"] for p in abi["parameters"]] == list(inputs)
+    assert cases["brillig_inverse"][1] == {1: pow(12345, F.P - 2, F.P)}
+    assert cases["range_and_xor"] == ({"a": 0xA5, "b": 0x3C},
+                                      {2: 0x24, 3: 0x99})
+
+
+def test_prover_toml_reads_back_through_the_abi():
+    from provekit_tpu_torch.acir.abi import Abi, input_from_toml
+    text = C.prover_toml({"x": 6, "y": 7})
+    assert text == 'x = "6"\ny = "7"\n'
+    abi = Abi.from_json({"parameters": [
+        {"name": "x", "type": {"kind": "field"}},
+        {"name": "y", "type": {"kind": "field"}}]})
+    assert input_from_toml(abi, text) == [6, 7]
+
+
+def test_verify_requests():
+    proof = bytes(range(10))
+    reqs = C.verify_requests(proof)
+    assert [(p, code) for p, _, code in reqs] == [
+        ("/api/v1/verify", 200), ("/api/v1/verify", 400),
+        ("/api/v1/verify", 400), ("/api/v1/prove", 404)]
+    assert reqs[0][1] == b'{"transcript": "00010203040506070809"}'
+    assert bytes.fromhex(json.loads(reqs[1][1])["transcript"]) == \
+        bytes([0, 1, 2, 3, 4, 4, 6, 7, 8, 9])
+    with pytest.raises(ValueError):
+        json.loads(reqs[2][1])
+    assert reqs[3][1] == reqs[0][1]
+
+
+def test_scheme_shape_of_the_passport():
+    """1,590,897 constraints and 2,261,537 witnesses: m = 23, m_0 = 21 and
+    an RS domain of 2^24, half of sha256 x100's 2^25."""
+    assert C.scheme_shape(C.PASSPORT_CONSTRAINTS, C.PASSPORT_WITNESSES) == \
+        {"m": 23, "m_0": 21, "rs_domain_log": 24}
+    assert C.scheme_shape(3_138_745, 4_630_312) == \
+        {"m": 24, "m_0": 22, "rs_domain_log": 25}
+
+
+def test_run_cli_returns_its_spans(tmp_path):
+    fixture = pathlib.Path(__file__).resolve().parent / "fixtures" / \
+        "mul_chain.json"
+    nps = tmp_path / "s.nps"
+    spans = C.run_cli(["prepare", str(fixture), "-o", str(nps), "--security",
+                       "30", "--max-pow-bits", "6", "--device", "cpu"],
+                      tmp_path / "out.txt")
+    assert [p for p, _ in spans] == ["prepare", "prepare/noir_to_r1cs",
+                                     "prepare/write_nps"]
+    assert all(s >= 0 for _, s in spans)
+    out = (tmp_path / "out.txt").read_text()
+    assert "R1CS: " in out and f"wrote {nps}" in out and nps.exists()
