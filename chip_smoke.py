@@ -43,7 +43,19 @@ Phases, one or more lines each:
      span, the launch counts around prove, the peak device memory, the
      proof size), and the verify service as a child process on its scheme,
      which must answer 200, 400, 400 and 404 (the proof, a flipped byte, a
-     malformed body, a wrong path).
+     malformed body, a wrong path);
+  9. the recursive-verifier path: (a) the gnark export at full width, the
+     passport's .nps and .np of phase 8 through `cli generate-gnark-inputs`
+     and poseidon2 x1000's scheme and proof of phase 6 through
+     `io.gnark.write_gnark_inputs`, each output walked by the port's
+     go_parse (the transcript consumed exactly, `prepare` accepting it);
+     (b) the Groth16 wrap through the CLI: the mul_chain fixture through
+     `prepare` and `prove` at security 30 (the inner prove's launches
+     counted), `recursive-verify --keys` twice (the setup writes the keys,
+     the second run loads them; both print OK), and the same with one
+     transcript byte of the proof flipped, which must exit non-zero.  The
+     wrap runs on the host (the port's curve engine, built with g++ from
+     provekit_tpu_torch/native/curve.cpp) and launches no kernel.
 The line before the last is the kernel JSON, the one before it the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.  Any
 failure exits non-zero before them.  The script needs a CUDA card and the
@@ -81,6 +93,8 @@ MONT_MUL_MULADDS = 2 * (64 + 64) + 8
 MONT_SQR_MULADDS = 2 * (36 + 64) + 8
 LADDER_SQUARES = 14
 PLANE_BYTES = 64  # one field element: 16 digit planes of int32
+# the kernels every prove of phases 6-9 launches (sha256 x100 adds K2)
+ON_PATH = ["mont_mul", "ntt_stage", "compress", "compress_fold", "duplex"]
 
 
 def log(msg: str) -> None:
@@ -848,7 +862,7 @@ def prove_path(torch, dev, tag, name, build, counters, expect, profile_to,
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         fail(f"kernels not launched by the {name} path: {missing}")
-    return launches
+    return launches, (whir, r1cs, proof)
 
 
 # the passport circuit of passport_test_vector(seed=1) with its signature
@@ -928,7 +942,8 @@ def phase_front_door(torch, dev, counters, out_dir):
     verify), then the passport circuit at full width (prepare and prove
     --verify through the CLI, in this process, the launches counted around
     prove), then the verify service as a child process on the passport's
-    scheme.  Returns the passport prove's launch counts."""
+    scheme.  Returns the passport prove's launch counts and the passport's
+    .nps and .np (phase 9 exports them, then deletes the .nps)."""
     from pathlib import Path
 
     from provekit_tpu_torch.circuits import passport
@@ -1034,12 +1049,180 @@ def phase_front_door(torch, dev, counters, out_dir):
         server_log.close()
         profiling.GLOBAL.sync = None
     # the large inputs stay out of what the run brings back
-    for path in (circuit, witness, nps):
+    for path in (circuit, witness):
         path.unlink()
-    missing = [k for k in ("mont_mul", "ntt_stage", "compress",
-                           "compress_fold", "duplex") if launches[k] <= 0]
+    missing = [k for k in ON_PATH if launches[k] <= 0]
     if missing:
         fail(f"kernels not launched by the passport CLI prove: {missing}")
+    return launches, nps, np_
+
+
+# [9] the recursive-verifier path
+RECURSION_SECURITY = 30  # tests/test_recursion.py's compiled circuit
+RECURSION_MAX_POW = 6
+PHASE9_BUDGET_S = 300
+RECURSION_SPANS = ("groth16_setup", "load_keys", "groth16_prove",
+                   "groth16_verify")
+
+
+def flip_byte(src, dst, pos: int = 0) -> None:
+    """Write to ``dst`` the .np proof of ``src`` with byte ``pos`` of its
+    transcript flipped (byte 0: the first committed root)."""
+    from provekit_tpu_torch.io import files
+    proof = files.read(src)
+    bad = bytearray(proof.transcript)
+    bad[pos] ^= 1
+    proof.transcript = bytes(bad)
+    files.write(dst, proof)
+
+
+def recursion_spans(spans) -> dict:
+    """The seconds of ``recursive-verify``'s spans (:func:`run_cli`'s
+    pairs), by name; a run has either ``groth16_setup`` or ``load_keys``,
+    and always ``groth16_prove`` and ``groth16_verify``."""
+    got = {name: sec for name, sec in spans if name in RECURSION_SPANS}
+    if ("groth16_setup" in got) == ("load_keys" in got) or not all(
+            k in got for k in ("groth16_prove", "groth16_verify")):
+        fail(f"recursive-verify spans: {spans}")
+    return got
+
+
+def wrapper_counts(text: str) -> dict:
+    """Constraints, wires and public inputs of the wrapper from
+    ``recursive-verify``'s output; fails unless it printed OK."""
+    import re
+    m = re.search(r"recursive verification: OK \((\d+) wrapper constraints, "
+                  r"(\d+) wires, (\d+) public inputs\)", text)
+    if m is None:
+        fail(f"recursive-verify did not print OK: {text[-500:]}")
+    return dict(zip(("constraints", "wires", "public_inputs"),
+                    map(int, m.groups())))
+
+
+def budget_line(label: str, seconds: float, budget: float) -> str:
+    """A log line for a phase's time against its budget in seconds."""
+    verdict = "within" if seconds <= budget else "OVER"
+    return (f"{label} took {seconds:.3f} s, {verdict} its budget of "
+            f"{budget} s")
+
+
+def check_export(params_path, r1cs_path, transcript: bytes) -> dict:
+    """Walk one export with the port's go_parse (the Go verifier's parse):
+    the transcript it holds is ``transcript``, the walk consumes it exactly
+    and ``prepare`` accepts the pair; returns what the walk found."""
+    from provekit_tpu_torch.io import go_parse
+    config = json.loads(params_path.read_text())
+    r1cs_doc = json.loads(r1cs_path.read_text())
+    if bytes(config["transcript"]) != transcript:
+        fail(f"{params_path}: the exported transcript is not the proof's")
+    out = go_parse.prepare(config, r1cs_doc)
+    parsed = out["parsed"]
+    return {"merkle_paths": len(parsed.merkle_paths),
+            "stir_answers": len(parsed.stir_answers),
+            "truncated_bytes": len(parsed.truncated),
+            "interner": len(out["interner"]),
+            "params_bytes": params_path.stat().st_size,
+            "r1cs_json_bytes": r1cs_path.stat().st_size}
+
+
+def phase_gnark_export(passport_nps, passport_np, poseidon, work) -> None:
+    """[9a] The gnark export at full width: the passport through the CLI,
+    poseidon2 x1000 through the library; both walked by go_parse."""
+    from provekit_tpu_torch.io import files
+    from provekit_tpu_torch.io.gnark import write_gnark_inputs
+    out = work / "passport_gnark"
+    t0 = time.perf_counter()
+    spans = run_cli(["generate-gnark-inputs", str(passport_nps),
+                     str(passport_np), "-o", str(out)],
+                    work / "passport_gnark.txt")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walk = check_export(out / "params_for_recursive_verifier",
+                        out / "r1cs.json",
+                        files.read(passport_np).transcript)
+    log(f"[9] passport: generate-gnark-inputs in {export_s:.3f} s ("
+        + ", ".join(f"{p} {s:.3f} s" for p, s in spans)
+        + f"), go_parse walk in {time.perf_counter() - t0:.3f} s: {walk}")
+
+    whir, r1cs, proof = poseidon
+    out = work / "poseidon_gnark"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    write_gnark_inputs(whir, r1cs, proof,
+                       whir.create_io_pattern().as_bytes(),
+                       out / "params_for_recursive_verifier",
+                       out / "r1cs.json")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walk = check_export(out / "params_for_recursive_verifier",
+                        out / "r1cs.json", proof)
+    log(f"[9] poseidon2 x1000: write_gnark_inputs in {export_s:.3f} s, "
+        f"go_parse walk in {time.perf_counter() - t0:.3f} s: {walk}")
+    # the matrix dumps stay out of what the run brings back
+    for name in ("passport_gnark", "poseidon_gnark"):
+        (work / name / "r1cs.json").unlink()
+
+
+def phase_recursion(counters, work) -> dict:
+    """[9b] The Groth16 wrap through the CLI on a small inner proof (the
+    mul_chain fixture at security 30, proved on the card): setup and
+    cached-key runs, then a flipped byte.  Returns the inner prove's
+    launch counts."""
+    from pathlib import Path
+
+    from provekit_tpu_torch.native import curve
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    lib = curve.build()
+    log(f"[9] curve engine {lib.name} built with g++ in "
+        f"{time.perf_counter() - t0:.3f} s")
+    inputs, _ = fixture_cases()["mul_chain"]
+    toml = work / "mul_chain.Prover.toml"
+    toml.write_text(prover_toml(inputs))
+    nps, np_ = work / "mul_chain.nps", work / "mul_chain.np"
+    t0 = time.perf_counter()
+    run_cli(["prepare", str(root / "tests" / "fixtures" / "mul_chain.json"),
+             "-o", str(nps), "--security", str(RECURSION_SECURITY),
+             "--max-pow-bits", str(RECURSION_MAX_POW)],
+            work / "mul_chain_prepare.txt")
+    reset_counts(counters)
+    run_cli(["prove", str(nps), str(toml), "-o", str(np_)],
+            work / "mul_chain_prove.txt")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    launches["duplex_permutations"] = counters["duplex"].permutations
+    log(f"[9] mul_chain at security {RECURSION_SECURITY}: prepare and "
+        f"prove through the CLI in {time.perf_counter() - t0:.3f} s; "
+        f"launches during the prove: {launches}")
+    missing = [k for k in ON_PATH if launches[k] <= 0]
+    if missing:
+        fail(f"kernels not launched by the inner prove: {missing}")
+
+    keys = work / "mul_chain_keys.pkl"
+    for run in ("setup", "cached keys"):
+        t0 = time.perf_counter()
+        out = work / f"recursive_verify_{run.split()[0]}.txt"
+        spans = recursion_spans(run_cli(
+            ["recursive-verify", str(nps), str(np_), "--keys", str(keys)],
+            out))
+        counts = wrapper_counts(out.read_text())
+        log(f"[9] recursive-verify ({run}) OK in "
+            f"{time.perf_counter() - t0:.3f} s: wrapper {counts}; spans "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
+            + f"; keys {keys.stat().st_size} bytes")
+
+    bad = work / "mul_chain_flipped.np"
+    flip_byte(np_, bad)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "provekit_tpu_torch.cli", "recursive-verify",
+         str(nps), str(bad), "--keys", str(keys)], cwd=root,
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode == 0:
+        fail(f"recursive-verify accepted a flipped byte: {proc.stdout}")
+    log(f"[9] recursive-verify with transcript byte 0 flipped exited "
+        f"{proc.returncode} in {time.perf_counter() - t0:.3f} s: "
+        f"{(proc.stderr.strip().splitlines() or ['?'])[-1]}")
+    keys.unlink()
     return launches
 
 
@@ -1065,18 +1248,28 @@ def main() -> int:
     mxu_launches = phase_mxu(torch, dev)
     phase_tiny(dev)
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
-    on_path = ["mont_mul", "ntt_stage", "compress", "compress_fold",
-               "duplex"]
     by_path = {}
-    by_path["poseidon2_x1000"] = prove_path(
+    by_path["poseidon2_x1000"], poseidon_export = prove_path(
         torch, dev, "[6]", "poseidon2 x1000",
-        lambda: poseidon.hash_chain_circuit(1000), counters, on_path,
+        lambda: poseidon.hash_chain_circuit(1000), counters, ON_PATH,
         out_dir / "chip_smoke_profile_poseidon.txt", True)
-    by_path["sha256_x100"] = prove_path(
+    by_path["sha256_x100"], _ = prove_path(
         torch, dev, "[7]", "sha256 x100",
-        lambda: sha256.chain_circuit(100), counters, on_path + ["butterfly"],
+        lambda: sha256.chain_circuit(100), counters,
+        ON_PATH + ["butterfly"],
         out_dir / "chip_smoke_profile_sha256.txt", False)
-    by_path["passport_cli"] = phase_front_door(torch, dev, counters, out_dir)
+    by_path["passport_cli"], passport_nps, passport_np = phase_front_door(
+        torch, dev, counters, out_dir)
+
+    t9 = time.perf_counter()
+    work = out_dir / "recursion"
+    work.mkdir(parents=True, exist_ok=True)
+    phase_gnark_export(passport_nps, passport_np, poseidon_export, work)
+    passport_nps.unlink()
+    del poseidon_export
+    by_path["recursion_cli"] = phase_recursion(counters, work)
+    log("[9] " + budget_line("phase 9", time.perf_counter() - t9,
+                             PHASE9_BUDGET_S))
     log(f"total {time.perf_counter() - T0:.3f} s")
 
     kernels = []

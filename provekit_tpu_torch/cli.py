@@ -1,4 +1,5 @@
-"""provekit-tpu-torch CLI: prepare | prove | verify | circuit-stats.
+"""provekit-tpu-torch CLI: prepare | prove | verify | circuit-stats |
+generate-gnark-inputs | recursive-verify.
 
 Port of ``provekit_tpu/cli.py`` (the reference binary's subcommands,
 ``tooling/cli/src/cmd/mod.rs:22-28``).  Circuits are accepted as Noir build
@@ -10,7 +11,8 @@ value (precomputed ``nargo execute`` output).
 
 Every command runs on the CUDA card unless ``--device cpu`` asks for the
 CPU; without a card and without that option it raises.  The gnark export
-and the recursive verifier of the JAX package are not ported yet.
+and the Groth16 wrap are host code; their commands read the scheme for the
+device all the same.
 
 Run as ``python -m provekit_tpu_torch.cli <command> ...``.
 """
@@ -131,6 +133,62 @@ def cmd_circuit_stats(args):
               f"nnz={r.a.nnz + r.b.nnz + r.c.nnz}")
 
 
+def cmd_generate_gnark_inputs(args):
+    from .io import files
+    from .io.gnark import write_gnark_inputs
+    from .utils.profiling import GLOBAL, span
+    device = files.require_device(args.device)
+    with span("generate_gnark_inputs"):
+        with span("read_nps"):
+            scheme = files.read(args.scheme, device=device)
+            proof = files.read(args.proof)
+        io_pattern = scheme.whir_for_witness.create_io_pattern().as_bytes()
+        out = Path(args.output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        with span("write_gnark_inputs"):
+            write_gnark_inputs(
+                scheme.whir_for_witness, scheme.r1cs, proof.transcript,
+                io_pattern, out / "params_for_recursive_verifier",
+                out / "r1cs.json")
+    print(GLOBAL.report())
+    print(f"wrote {out}/params_for_recursive_verifier and {out}/r1cs.json")
+
+
+def cmd_recursive_verify(args):
+    """Wrap a .np proof in Groth16 (the reference's Go recursive-verifier
+    CLI flow: build circuit, setup or load cached keys, prove, verify —
+    recursive-verifier/cmd/cli/main.go:15-120, app/circuit/common.go)."""
+    import pickle
+    from .io import files
+    from .recursion import wrap
+    from .utils.profiling import GLOBAL, span
+    device = files.require_device(args.device)
+    scheme = files.read(args.scheme, device=device)
+    proof = files.read(args.proof)
+    inner = scheme.whir_for_witness
+    keys_path = Path(args.keys) if args.keys else None
+    rk = None
+    if keys_path and keys_path.exists():
+        with span("load_keys"):
+            rk = pickle.loads(keys_path.read_bytes())
+    if rk is None:
+        with span("groth16_setup"):
+            rk = wrap.setup(inner, scheme.r1cs, proof.transcript)
+        if keys_path:
+            keys_path.write_bytes(pickle.dumps(rk))
+    with span("groth16_prove"):
+        g16, publics = wrap.prove(rk, inner, scheme.r1cs, proof.transcript)
+    with span("groth16_verify"):
+        ok = wrap.verify(rk, g16, publics)
+    print(GLOBAL.report())
+    if not ok:
+        raise SystemExit("recursive verification FAILED")
+    w = rk.wrapper_r1cs
+    print(f"recursive verification: OK "
+          f"({w.num_constraints} wrapper constraints, {w.num_witnesses} "
+          f"wires, {len(publics)} public inputs)")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="provekit-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -170,6 +228,23 @@ def main(argv=None):
                     help="additionally compile and print actual R1CS sizes")
     device_option(sp)
     sp.set_defaults(fn=cmd_circuit_stats)
+
+    sp = sub.add_parser("generate-gnark-inputs",
+                        help="export recursive-verifier inputs")
+    sp.add_argument("scheme")
+    sp.add_argument("proof")
+    sp.add_argument("-o", "--output-dir", default="gnark-inputs")
+    device_option(sp)
+    sp.set_defaults(fn=cmd_generate_gnark_inputs)
+
+    sp = sub.add_parser("recursive-verify",
+                        help="wrap a proof in Groth16 and verify it")
+    sp.add_argument("scheme")
+    sp.add_argument("proof")
+    sp.add_argument("--keys", help="Groth16 key cache path "
+                    "(created on first run, like the reference's --ccs)")
+    device_option(sp)
+    sp.set_defaults(fn=cmd_recursive_verify)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -1,6 +1,6 @@
 """Artifact file formats: .nps (compiled scheme) and .np (proof).
 
-Port of ``provekit_tpu/io/files.py`` without the gnark export.  It mirrors
+Port of ``provekit_tpu/io/files.py`` (the gnark export is ``gnark.py``).  It mirrors
 the reference's checkpoint/artifact design
 (``provekit/common/src/file/{mod.rs,bin.rs}``): versioned header
 ``MAGIC || format-tag || (major, minor)`` followed by a compressed body,

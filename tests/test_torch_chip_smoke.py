@@ -112,3 +112,48 @@ def test_run_cli_returns_its_spans(tmp_path):
     assert all(s >= 0 for _, s in spans)
     out = (tmp_path / "out.txt").read_text()
     assert "R1CS: " in out and f"wrote {nps}" in out and nps.exists()
+
+
+# -- phase 9's helpers -------------------------------------------------------
+
+
+def test_flip_byte_flips_one_transcript_byte(tmp_path):
+    from provekit_tpu_torch.compiler import NoirProof
+    from provekit_tpu_torch.io import files
+    src, dst = tmp_path / "p.np", tmp_path / "bad.np"
+    files.write(src, NoirProof(transcript=bytes(range(40))))
+    C.flip_byte(src, dst)
+    C.flip_byte(src, tmp_path / "bad7.np", pos=7)
+    assert files.read(dst).transcript == bytes([1, *range(1, 40)])
+    got = files.read(tmp_path / "bad7.np").transcript
+    assert [i for i in range(40) if got[i] != i] == [7] and got[7] == 6
+    assert files.read(src).transcript == bytes(range(40))
+
+
+def test_recursion_spans():
+    spans = [("groth16_setup", 20.5), ("groth16_prove", 30.0),
+             ("groth16_verify", 2.0)]
+    assert C.recursion_spans(spans) == dict(spans)
+    cached = [("load_keys", 1.0), ("groth16_prove", 29.0),
+              ("groth16_verify", 2.5)]
+    assert C.recursion_spans(cached) == dict(cached)
+    for bad in (spans[1:], cached[:2], [("load_keys", 1.0), *spans]):
+        with pytest.raises(SystemExit):
+            C.recursion_spans(bad)
+
+
+def test_wrapper_counts():
+    text = ("├─ groth16_verify 2.28 s\nrecursive verification: OK (102330 "
+            "wrapper constraints, 161750 wires, 40 public inputs)\n")
+    assert C.wrapper_counts(text) == {"constraints": 102330,
+                                      "wires": 161750, "public_inputs": 40}
+    with pytest.raises(SystemExit):
+        C.wrapper_counts("recursive verification FAILED")
+
+
+def test_budget_line():
+    assert C.budget_line("phase 9", 250.25, 300) == \
+        "phase 9 took 250.250 s, within its budget of 300 s"
+    assert C.budget_line("phase 9", 300.0, 300).endswith(
+        "within its budget of 300 s")
+    assert "OVER its budget" in C.budget_line("phase 9", 300.5, 300)
