@@ -22,26 +22,36 @@ Phases, one or more lines each:
      the poseidon2 x1000 prove, beside single-step launches on the host's
      wall clock; the duplex absorbs and squeezes at the transcript's counts
      and in the fused round steps' calls, and the sponge's serial chain runs
-     as 200 permute calls beside one 200-output squeeze;
+     as 200 permute calls beside one 200-output squeeze.  The fused
+     sumcheck segments (csrc/sumcheck_segment.cu) run at every (n, rounds)
+     that a prove of each of the four paths of phases 6-9 launches
+     (poseidon2 x1000, sha256 x100, the passport, the mul_chain inner
+     prove), with their bound and the floor of the sponge's serial chain,
+     and at 0, 1 and all rounds on the edge values 0, 1 and P - 1; each
+     path's prove is then held to launch exactly those shapes;
   4. the tensor-core Montgomery experiment (experiments/mxu_mont.py);
   5. the tiny scheme on the card: pinned proof digest, verify, tamper;
   6. poseidon2 x1000 at security 128 through the port's entry points:
-     build, from_program, solve_witness, a warm-up prove, a timed prove (its
-     five spans, each kernel's launch count, the sponge's permutations and
-     the peak device memory), one more prove under torch.profiler (device
-     busy share and the Skyscraper kernels' share of it; the kernel table
-     goes to chiprun_out/chip_smoke_profile_poseidon.txt), verify, and a
+     build, from_program, solve_witness, a warm-up prove (its segment
+     launches held to the shapes phase 3 ran for this path), a timed prove (its five
+     spans, each kernel's launch count, the sponge's permutations, the peak
+     device memory and the pinned proof digest), one more prove under
+     torch.profiler (device busy share and the share of the kernels that
+     run the Skyscraper ladder; the kernel table goes to
+     chiprun_out/chip_smoke_profile_poseidon.txt), then a warm-up, a timed
+     and a profiled prove with FUSE_MAX = 0 (every sumcheck round one at a
+     time, no segment; chip_smoke_profile_poseidon_unfused.txt), verify, and a
      flipped byte rejected;
-  7. sha256 x100 (RS domain 2^25) at security 128, the same stages, with a
-     progress line per stage;
+  7. sha256 x100 (RS domain 2^25) at security 128, the same stages but the
+     FUSE_MAX = 0 proves, with a progress line per stage;
   8. the front door: each Noir fixture of tests/fixtures through the CLI
      (prepare; prove from a Prover.toml through the ACVM and Brillig VM,
      whose witness values are checked; verify), then the passport circuit
      (passport_test_vector(seed=1) with its ECDSA P-256 signature, 1,590,897
      constraints, RS domain 2^24) at security 128: its circuit and witness
      JSON, the CLI's prepare and prove --verify in this process (each CLI
-     span, the launch counts around prove, the peak device memory, the
-     proof size), and the verify service as a child process on its scheme,
+     span, the launch counts and segment shapes around prove, the peak
+     device memory, the proof size), and the verify service as a child process on its scheme,
      which must answer 200, 400, 400 and 404 (the proof, a flipped byte, a
      malformed body, a wrong path);
   9. the recursive-verifier path: (a) the gnark export at full width, the
@@ -51,7 +61,7 @@ Phases, one or more lines each:
      go_parse (the transcript consumed exactly, `prepare` accepting it);
      (b) the Groth16 wrap through the CLI: the mul_chain fixture through
      `prepare` and `prove` at security 30 (the inner prove's launches
-     counted), `recursive-verify --keys` twice (the setup writes the keys,
+     counted, its segment shapes held to phase 3's), `recursive-verify --keys` twice (the setup writes the keys,
      the second run loads them; both print OK), and the same with one
      transcript byte of the proof flipped, which must exit non-zero.  The
      wrap runs on the host (the port's curve engine, built with g++ from
@@ -62,6 +72,7 @@ failure exits non-zero before them.  The script needs a CUDA card and the
 repository beside it; it imports no JAX.
 """
 
+import contextlib
 import hashlib
 import json
 import random
@@ -70,6 +81,11 @@ import sys
 import time
 
 TINY_DIGEST = "efa6851f51a1090ab1139f427a9a67daa4b2c16037937f0e853bb8db0c5cbfb0"
+# the proofs of phases 6 and 7 (their rng is seeded)
+POSEIDON_DIGEST = \
+    "dface69169218b929caf687005cc1e38e7bd563507b2a1fa527127f886b98bd7"
+SHA256_DIGEST = \
+    "0d17f27325b1514308c5cc804346f8b5d6251838ee4cdf7f0dc15881edb8626a"
 TPU_KERNELS = "provekit_tpu/ops/pallas_kernels.py"
 SEED = 20261016
 T0 = time.perf_counter()
@@ -93,8 +109,12 @@ MONT_MUL_MULADDS = 2 * (64 + 64) + 8
 MONT_SQR_MULADDS = 2 * (36 + 64) + 8
 LADDER_SQUARES = 14
 PLANE_BYTES = 64  # one field element: 16 digit planes of int32
+# the fused sumcheck segments (csrc/sumcheck_segment.cu)
+SEGMENT_KERNELS = ["whir_segment", "spartan_segment"]
+FUSED_PY = "provekit_tpu/ops/fused.py"
 # the kernels every prove of phases 6-9 launches (sha256 x100 adds K2)
-ON_PATH = ["mont_mul", "ntt_stage", "compress", "compress_fold", "duplex"]
+ON_PATH = ["mont_mul", "ntt_stage", "compress", "compress_fold", "duplex",
+           *SEGMENT_KERNELS]
 
 
 def log(msg: str) -> None:
@@ -277,9 +297,10 @@ def phase_build():
     K.lib()
     log(f"[2] {len(K.SIGNATURES)} kernel libraries built in "
         f"{time.perf_counter() - t0:.3f} s")
-    for line in reports.get("skyscraper.cu", "").splitlines():
-        if "ptxas info" in line or "spill" in line:
-            log(f"[2] skyscraper.cu {line.strip()}")
+    for src in ("skyscraper.cu", "sumcheck_segment.cu"):
+        for line in reports.get(src, "").splitlines():
+            if "ptxas info" in line or "spill" in line:
+                log(f"[2] {src} {line.strip()}")
 
 
 class Rows:
@@ -313,7 +334,8 @@ class Rows:
 
 
 def phase_kernels(torch, dev, rates):
-    """Each kernel against its plain version at the shapes of its path."""
+    """Each kernel against its plain version at the shapes of its path.
+    Returns the rows and each path's segment shapes (:func:`phase_segments`)."""
     import numpy as np
     from provekit_tpu_torch.experiments import mxu_mont as M
     from provekit_tpu_torch.fields import vector as V
@@ -374,6 +396,7 @@ def phase_kernels(torch, dev, rates):
         f"{rows.rows['mont_mul']['ms']:.4f} ms")
 
     phase_skyscraper(torch, rows, dev, a, b)
+    segments = phase_segments(torch, rng, rows, dev)
     phase_poseidon_leaves(torch, rng, rows, dev)
     del a, b, coeffs
 
@@ -427,7 +450,7 @@ def phase_kernels(torch, dev, rates):
     for cached in (ntt._twiddle_table, ntt._cross_twiddles):
         cached.cache_clear()
     torch.cuda.empty_cache()
-    return rows.rows
+    return rows.rows, segments
 
 
 def phase_skyscraper(torch, rows, dev, a, b):
@@ -551,6 +574,113 @@ def phase_skyscraper(torch, rows, dev, a, b):
     log(f"[3] serial chain of {calls} permutations, host wall clock per "
         f"permutation: permute calls {chain_ms / calls:.4f} ms, one duplex "
         f"squeeze {squeeze_ms / calls:.4f} ms")
+
+
+def segment_args(torch, rng, dev, kind: str, n: int, rounds: int,
+                 edge: bool) -> tuple:
+    """Arguments of a segment wrapper: random canonical planes, or the
+    edge values 0, 1 and P - 1 in a seeded order."""
+    from provekit_tpu_torch.fields import bn254 as F
+    from provekit_tpu_torch.fields import vector as V
+
+    def planes(k):
+        if edge:
+            return V.pack([int(v) for v in rng.choice([0, 1, F.P - 1],
+                                                       size=k)], dev)
+        return random_planes(torch, rng, k, dev)
+
+    if kind == "whir_segment":
+        return planes(2 * n).reshape(16, 2, n), planes(2), rounds
+    abce, c = planes(4 * n).reshape(16, 4, n), planes(5 + 7 * rounds)
+    r = rounds
+    return (abce, c[:, :2], c[:, 2:3], c[:, 3:4],
+            c[:, 5 + 3 * r:].reshape(16, r, 4), c[:, 5:5 + r],
+            c[:, 5 + r:5 + 2 * r], c[:, 5 + 2 * r:5 + 3 * r], c[:, 4:5], r)
+
+
+def path_segment_shapes() -> dict:
+    """Path -> the (kernel, n, rounds) of every segment launch of one of its
+    proves (:func:`segment_shapes`), from the schemes phases 6-9 build:
+    poseidon2 x1000, sha256 x100 and the passport at security 128 from
+    their R1CS counts, the mul_chain fixture compiled here on the CPU at
+    phase 9's security."""
+    from pathlib import Path
+
+    from provekit_tpu_torch import cli
+    from provekit_tpu_torch.compiler import NoirProofScheme
+    program, abi = cli._load_circuit_program(
+        Path(__file__).resolve().parent / "tests" / "fixtures"
+        / "mul_chain.json")
+    mul_chain = NoirProofScheme.from_program(
+        program, security_level=RECURSION_SECURITY,
+        max_pow_bits=RECURSION_MAX_POW, abi=abi, device="cpu")
+    return {"poseidon2_x1000": segment_shapes(scheme_for(515_003, 515_005)),
+            "sha256_x100": segment_shapes(scheme_for(3_138_745, 4_630_312)),
+            "passport_cli": segment_shapes(scheme_for(PASSPORT_CONSTRAINTS,
+                                                      PASSPORT_WITNESSES)),
+            "recursion_cli": segment_shapes(mul_chain.whir_for_witness)}
+
+
+def phase_segments(torch, rng, rows, dev) -> dict:
+    """The fused sumcheck segments (csrc/sumcheck_segment.cu) against their
+    plain versions (the per-round loop on CPU copies): at every (n, rounds)
+    that a prove of one of the four paths launches
+    (:func:`path_segment_shapes`), on random inputs, with the kernel's time,
+    the plain version's, the bound and the sponge chain's floor (the
+    segment's permutations at this run's duplex time a permutation); then
+    at 0 rounds, 1 and full depth on the edge values 0, 1 and P - 1.  The
+    row of each kernel is its largest shape.  Returns the paths' shapes,
+    which their proves must launch."""
+    from provekit_tpu_torch.ops import fused
+    from provekit_tpu_torch.utils.profiling import cuda_ms
+    kernel = {"whir_segment": fused.whir_sumcheck_segment,
+              "spartan_segment": fused.spartan_sumcheck_fused}
+    plain = {"whir_segment": fused.whir_sumcheck_segment_plain,
+             "spartan_segment": fused.spartan_sumcheck_fused_plain}
+    replaces = {"whir_segment": f"{FUSED_PY}:160",
+                "spartan_segment": f"{FUSED_PY}:204"}
+    per_perm_ms = rows.rows["duplex"]["ms"]
+
+    def flat(out):
+        return torch.cat([t.reshape(16, -1) for t in out], dim=1)
+
+    paths = path_segment_shapes()
+    log(f"[3] segment launches (kernel, n, rounds) of one prove: {paths}")
+    # ascending, so that each kernel's row (its last with a bound) is its
+    # largest shape
+    measured = {}
+    for kind, n, r in sorted({c for calls in paths.values() for c in calls}):
+        args = segment_args(torch, rng, dev, kind, n, r, False)
+        want, plain_ms = timed_once(torch, lambda: plain[kind](*args))
+        ms = cuda_ms(lambda: kernel[kind](*args), 10)
+        nbytes, ops, perms = segment_work(kind, n, r)
+        chain_ms = perms * per_perm_ms
+        rows.check(kind, f"n={n} rounds={r}", flat(kernel[kind](*args)),
+                   flat(want), ms, plain_ms, nbytes=nbytes, ops=ops,
+                   source="sumcheck_segment.cu", replaces=replaces[kind],
+                   chain_floor_ms=chain_ms)
+        log(f"[3] {kind} n={n} rounds={r}: {perms} permutations, the "
+            f"sponge chain's floor {chain_ms:.4f} ms at {per_perm_ms:.5f} ms "
+            f"a permutation; 20 launches back to back, per launch "
+            f"{back_to_back_ms(torch, lambda: kernel[kind](*args)):.4f} ms")
+        measured[kind, n, r] = (ms, bound(nbytes, ops, rows.rates)[0],
+                                chain_ms)
+    for path, calls in paths.items():
+        for kind in SEGMENT_KERNELS:
+            mine = [measured[c] for c in calls if c[0] == kind]
+            log(f"[3] {kind}: a {path} prove launches it {len(mine)} "
+                f"times: {sum(m[0] for m in mine):.4f} ms of kernel time, "
+                f"bound {sum(m[1] for m in mine):.4f} ms, the sponge "
+                f"chain's floor {sum(m[2] for m in mine):.4f} ms")
+    for kind, cases in (("whir_segment", [(8, 0), (8, 1), (8, 3),
+                                          (1 << 10, 10)]),
+                        ("spartan_segment", [(1, 0), (2, 1), (8, 3),
+                                             (1 << 10, 10)])):
+        for n, r in cases:
+            args = segment_args(torch, rng, dev, kind, n, r, True)
+            rows.check(kind, f"edge values, n={n} rounds={r}",
+                       flat(kernel[kind](*args)), flat(plain[kind](*args)))
+    return paths
 
 
 def poseidon_leaf_shapes() -> list:
@@ -748,16 +878,33 @@ def reset_counts(counters) -> None:
             fn.permutations = 0
 
 
+def read_counts(counters) -> dict:
+    """Each counter's launches, and the sponge's permutations: in duplex
+    launches, in the segment kernels, in all."""
+    out = {k: fn.launches for k, fn in counters.items()}
+    out["duplex_permutations"] = counters["duplex"].permutations
+    for k in SEGMENT_KERNELS:
+        out[f"{k}_permutations"] = counters[k].permutations
+    out["segment_permutations"] = sum(counters[k].permutations
+                                      for k in SEGMENT_KERNELS)
+    out["sponge_permutations"] = (out["duplex_permutations"]
+                                  + out["segment_permutations"])
+    return out
+
+
 SKYSCRAPER_KERNELS = ("compress_kernel", "compress_fold_kernel",
-                      "permute_kernel", "duplex_kernel")
+                      "permute_kernel", "duplex_kernel",
+                      "whir_segment_kernel", "spartan_segment_kernel")
 
 
-def profile_prove(torch, whir, r1cs, witness, path, tag, cpu) -> None:
+def profile_prove(torch, whir, r1cs, witness, path, tag, cpu) -> dict:
     """One more prove under torch.profiler: kernel table, device busy share
-    (summed kernel time over the prove's wall time) and the Skyscraper
-    kernels' device time (the duplex's per permutation) written to
-    ``path``.  ``cpu`` also records the host's operators (their table
-    follows), which takes minutes to aggregate on the sha256 path."""
+    (summed kernel time over the prove's wall time) and the device time of
+    the kernels that run the Skyscraper ladder (the duplex's per
+    permutation) written to ``path``.  ``cpu`` also records the host's
+    operators (their table follows), which takes minutes to aggregate on
+    the sha256 path.  Returns the wall seconds, the busy seconds and the
+    number of device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from provekit_tpu_torch.hash import skyscraper as S
@@ -784,7 +931,7 @@ def profile_prove(torch, whir, r1cs, witness, path, tag, cpu) -> None:
     duplex_us = sky["duplex_kernel"][0]
     summary = (f"profiled prove: wall {wall:.3f} s, device busy "
                f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}%), "
-               f"{launches} device kernels; Skyscraper kernels "
+               f"{launches} device kernels; Skyscraper ladder kernels "
                f"{sky_us / 1e3:.3f} ms ({100 * sky_us / max(busy_us, 1):.1f}% "
                f"of device time): "
                + ", ".join(f"{k} {us / 1e3:.3f} ms in {c}"
@@ -798,16 +945,124 @@ def profile_prove(torch, whir, r1cs, witness, path, tag, cpu) -> None:
                                    row_limit=25))
     path.write_text("\n\n".join([summary, *tables]))
     log(f"{tag} {summary} -> {path}")
+    return {"wall_s": wall, "busy_s": busy_us / 1e6, "kernels": launches}
 
 
-def prove_path(torch, dev, tag, name, build, counters, expect, profile_to,
-               profile_cpu):
+def scheme_for(constraints: int, witnesses: int):
+    """The WhirR1CSScheme that ``new_for_r1cs`` builds at security 128 (as
+    ``prepare`` does by default) for an R1CS of these counts (its shape
+    alone; on the CPU)."""
+    import types
+
+    from provekit_tpu_torch.protocol import WhirR1CSScheme
+    r1cs = types.SimpleNamespace(num_constraints=constraints,
+                                 num_witnesses=witnesses,
+                                 a=types.SimpleNamespace(nnz=1))
+    return WhirR1CSScheme.new_for_r1cs(r1cs, 128, device="cpu")
+
+
+def segment_shapes(scheme) -> list:
+    """(kernel, n, rounds) of every fused segment launch of one prove of
+    ``scheme``, in launch order: the Spartan tail, then the sumcheck calls
+    of the blinding polynomial's WHIR opening and of the witness's, each
+    past its leading rounds (``fused.lead_rounds``)."""
+    from provekit_tpu_torch.ops.fused import lead_rounds
+
+    def tail(kind, n, rounds):
+        lead = lead_rounds(n, rounds)
+        return [(kind, n >> lead, rounds - lead)] if lead < rounds else []
+
+    def whir(cfg):
+        k = cfg.num_variables
+        calls = tail("whir_segment", 1 << k, cfg.initial_folding_factor)
+        k -= cfg.initial_folding_factor
+        for rc in cfg.rounds:
+            calls += tail("whir_segment", 1 << k, rc.folding_factor)
+            k -= rc.folding_factor
+        return calls + tail("whir_segment", 1 << k,
+                            cfg.final_sumcheck_rounds)
+
+    return (tail("spartan_segment", 1 << scheme.m_0, scheme.m_0)
+            + whir(scheme.whir_for_hiding_spartan) + whir(scheme.whir_witness))
+
+
+def segment_work(kind: str, n: int, rounds: int) -> tuple:
+    """(bytes, operations, permutations) of one segment launch on n
+    elements: each input and output element once (planes of 64 bytes an
+    element); the Montgomery products of the pair sums (4 a WHIR pair, 6 a
+    Spartan pair), the folds (2 a WHIR pair, 4 a Spartan pair but in the
+    last round) and the rounds' scalar steps (4 for WHIR, 21 for Spartan);
+    and the ladders of the sponge's 3 (WHIR) or 4 (Spartan) permutations a
+    round."""
+    pairs = sum(n >> (j + 1) for j in range(rounds))
+    if kind == "whir_segment":
+        elements = 2 * n + 2 + 2 * (n >> rounds) + 2 + 4 * rounds
+        muls = 6 * pairs + 4 * rounds
+        perms = 3 * rounds
+    else:
+        elements = 4 * n + 5 + 7 * rounds + 2 + 5 * rounds
+        last = n >> rounds if rounds else 0
+        muls = 10 * pairs - 4 * last + 21 * rounds
+        perms = 4 * rounds
+    ops = mont_mul_ops(muls)
+    ops["int32_muladd"] += ladder_ops(perms)["int32_muladd"]
+    return PLANE_BYTES * elements, ops, perms
+
+
+def check_segments(name: str, calls: list, expect: list) -> None:
+    """Fail unless a prove's recorded segment launches are the shapes that
+    phase 3 held against the plain version for its path."""
+    if calls != expect:
+        fail(f"{name}: segment launches {calls}, phase 3 ran {expect}")
+    log(f"{name}: segment launches (kernel, n, rounds) as phase 3 ran them: "
+        f"{calls}")
+
+
+@contextlib.contextmanager
+def recorded_segments():
+    """Record (kernel, n, rounds) of every segment wrapper call inside.
+    The wrappers count their launches under their module names, which the
+    recorders hold inside; on the way out those counts are added to the
+    wrappers' own, so that a count read after the block holds them."""
+    from provekit_tpu_torch.ops import fused
+    calls = []
+    whir, spartan = fused.whir_sumcheck_segment, fused.spartan_sumcheck_fused
+
+    def whir_rec(fw, state, count):
+        calls.append(("whir_segment", fw.shape[2], count))
+        return whir(fw, state, count)
+
+    def spartan_rec(abce, *args):
+        calls.append(("spartan_segment", abce.shape[2], args[-1]))
+        return spartan(abce, *args)
+
+    for rec in (whir_rec, spartan_rec):
+        rec.launches = rec.permutations = 0
+    fused.whir_sumcheck_segment = whir_rec
+    fused.spartan_sumcheck_fused = spartan_rec
+    try:
+        yield calls
+    finally:
+        fused.whir_sumcheck_segment = whir
+        fused.spartan_sumcheck_fused = spartan
+        for fn, rec in ((whir, whir_rec), (spartan, spartan_rec)):
+            fn.launches += rec.launches
+            fn.permutations += rec.permutations
+
+
+def prove_path(torch, dev, tag, name, build, counters, expect, segments,
+               digest, profile_to, profile_cpu, unfused_profile_to=None):
     """One circuit through the port's entry points: build, from_program,
-    solve_witness, a warm-up prove, a timed prove with the launch counts of
-    ``counters`` (each name in ``expect`` must launch), a profiled prove
-    (:func:`profile_prove`), verify and a flipped byte.  Returns the launch
-    counts."""
+    solve_witness, a warm-up prove (its segment launches must be
+    ``segments``, the shapes phase 3 ran for this path), a timed prove with
+    the launch counts of ``counters`` (each name in ``expect`` must launch)
+    and the pinned proof ``digest``, a profiled prove
+    (:func:`profile_prove`), verify and a flipped byte.  With
+    ``unfused_profile_to``, then a warm-up, a timed and a profiled prove
+    with FUSE_MAX = 0 (every sumcheck round one at a time, no segment).
+    Returns the launch counts."""
     from provekit_tpu_torch.compiler import NoirProofScheme
+    from provekit_tpu_torch.ops import fused as fused_ops
     from provekit_tpu_torch.utils import profiling
 
     stages = {}
@@ -837,24 +1092,50 @@ def prove_path(torch, dev, tag, name, build, counters, expect, profile_to,
         torch.cuda.synchronize()
         return proof
 
-    stage("warmup_prove", prove)
-    profiling.GLOBAL.sync = torch.cuda.synchronize
-    mark = len(profiling.GLOBAL.root.children)
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_counts(counters)
-    proof = stage("prove", prove)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    launches["duplex_permutations"] = counters["duplex"].permutations
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    spans = {s.name: s.elapsed for s in profiling.GLOBAL.root.children[mark:]}
-    profiling.GLOBAL.sync = None
-    for label, sec in spans.items():
-        log(f"{tag} {name}: prove span {label}: {sec:.3f} s")
-    log(f"{tag} {name}: proof {len(proof)} bytes, sha256 "
-        f"{hashlib.sha256(proof).hexdigest()}; launches during the timed "
-        f"prove: {launches}; peak device memory {peak_gib:.3f} GiB")
+    with recorded_segments() as calls:
+        stage("warmup_prove", prove)
+    check_segments(f"{tag} {name}", calls, segments)
 
-    profile_prove(torch, whir, r1cs, witness, profile_to, tag, profile_cpu)
+    def timed(label):
+        profiling.GLOBAL.sync = torch.cuda.synchronize
+        mark = len(profiling.GLOBAL.root.children)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(counters)
+        proof = stage(label, prove)
+        launches = read_counts(counters)
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        spans = {s.name: s.elapsed
+                 for s in profiling.GLOBAL.root.children[mark:]}
+        profiling.GLOBAL.sync = None
+        for span_name, sec in spans.items():
+            log(f"{tag} {name}: {label} span {span_name}: {sec:.3f} s")
+        got = hashlib.sha256(proof).hexdigest()
+        log(f"{tag} {name}: {label}: proof {len(proof)} bytes, sha256 {got}; "
+            f"launches: {launches}; peak device memory {peak_gib:.3f} GiB")
+        if got != digest:
+            fail(f"{name}: {label} proof digest {got} != {digest}")
+        return proof, launches
+
+    rng_state = rng.getstate()
+    proof, launches = timed("prove")
+    fused = profile_prove(torch, whir, r1cs, witness, profile_to, tag,
+                          profile_cpu)
+    if unfused_profile_to is not None:
+        saved, fused_ops.FUSE_MAX = fused_ops.FUSE_MAX, 0
+        try:
+            stage("warmup_prove_unfused", prove)
+            rng.setstate(rng_state)  # the timed prove's draws: its digest
+            _, unfused_launches = timed("prove_unfused")
+            unfused = profile_prove(torch, whir, r1cs, witness,
+                                    unfused_profile_to, tag, profile_cpu)
+        finally:
+            fused_ops.FUSE_MAX = saved
+        if any(unfused_launches[k] for k in SEGMENT_KERNELS):
+            fail(f"{name}: a segment launched with FUSE_MAX = 0")
+        log(f"{tag} {name}: profiled prove with the segments / with FUSE_MAX"
+            f" = 0: {fused['kernels']} / {unfused['kernels']} device "
+            f"kernels, busy {fused['busy_s']:.3f} / {unfused['busy_s']:.3f}"
+            f" s of {fused['wall_s']:.3f} / {unfused['wall_s']:.3f} s")
     stage("verify", lambda: whir.verify(r1cs, proof))
     expect_rejected(whir, r1cs, proof, [len(proof) // 2])
     log(f"{tag} {name}: verify ok, flipped byte rejected; stages "
@@ -936,12 +1217,13 @@ def wait_for_banner(proc, log_path, timeout: float) -> None:
         time.sleep(0.5)
 
 
-def phase_front_door(torch, dev, counters, out_dir):
+def phase_front_door(torch, dev, counters, segments, out_dir):
     """[8] The port's front door: the Noir fixtures through the CLI
     (prepare, prove from Prover.toml through the ACVM and Brillig VM,
     verify), then the passport circuit at full width (prepare and prove
-    --verify through the CLI, in this process, the launches counted around
-    prove), then the verify service as a child process on the passport's
+    --verify through the CLI, in this process, the launches counted and the
+    segment launches recorded around prove: they must be ``segments``),
+    then the verify service as a child process on the passport's
     scheme.  Returns the passport prove's launch counts and the passport's
     .nps and .np (phase 9 exports them, then deletes the .nps)."""
     from pathlib import Path
@@ -1014,10 +1296,11 @@ def phase_front_door(torch, dev, counters, out_dir):
     try:
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts(counters)
-        cli_step("passport", ["prove", str(nps), str(witness), "-o",
-                              str(np_), "--verify"], "passport_prove")
-        launches = {k: fn.launches for k, fn in counters.items()}
-        launches["duplex_permutations"] = counters["duplex"].permutations
+        with recorded_segments() as calls:
+            cli_step("passport", ["prove", str(nps), str(witness), "-o",
+                                  str(np_), "--verify"], "passport_prove")
+        launches = read_counts(counters)
+        check_segments("[8] passport", calls, segments)
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         if "self-verify: OK" not in (work / "passport_prove.txt").read_text():
             fail("passport: the CLI's self-verify did not pass")
@@ -1163,11 +1446,11 @@ def phase_gnark_export(passport_nps, passport_np, poseidon, work) -> None:
         (work / name / "r1cs.json").unlink()
 
 
-def phase_recursion(counters, work) -> dict:
+def phase_recursion(counters, segments, work) -> dict:
     """[9b] The Groth16 wrap through the CLI on a small inner proof (the
-    mul_chain fixture at security 30, proved on the card): setup and
-    cached-key runs, then a flipped byte.  Returns the inner prove's
-    launch counts."""
+    mul_chain fixture at security 30, proved on the card; its segment
+    launches must be ``segments``): setup and cached-key runs, then a
+    flipped byte.  Returns the inner prove's launch counts."""
     from pathlib import Path
 
     from provekit_tpu_torch.native import curve
@@ -1186,10 +1469,11 @@ def phase_recursion(counters, work) -> dict:
              "--max-pow-bits", str(RECURSION_MAX_POW)],
             work / "mul_chain_prepare.txt")
     reset_counts(counters)
-    run_cli(["prove", str(nps), str(toml), "-o", str(np_)],
-            work / "mul_chain_prove.txt")
-    launches = {k: fn.launches for k, fn in counters.items()}
-    launches["duplex_permutations"] = counters["duplex"].permutations
+    with recorded_segments() as calls:
+        run_cli(["prove", str(nps), str(toml), "-o", str(np_)],
+                work / "mul_chain_prove.txt")
+    launches = read_counts(counters)
+    check_segments("[9] mul_chain", calls, segments)
     log(f"[9] mul_chain at security {RECURSION_SECURITY}: prepare and "
         f"prove through the CLI in {time.perf_counter() - t0:.3f} s; "
         f"launches during the prove: {launches}")
@@ -1235,16 +1519,18 @@ def main() -> int:
     from provekit_tpu_torch.circuits import poseidon, sha256
     from provekit_tpu_torch.fields import vector as V
     from provekit_tpu_torch.hash import skyscraper as S
-    from provekit_tpu_torch.ops import ntt
+    from provekit_tpu_torch.ops import fused, ntt
 
     dev = torch.device("cuda", 0)
     counters = {"mont_mul": V.mont_mul, "ntt_stage": ntt.ntt_stage,
                 "butterfly": ntt.butterfly, "compress": S.compress_v,
                 "compress_fold": S.compress_fold_v, "permute": S.permute_v,
-                "duplex": S.duplex_v}
+                "duplex": S.duplex_v,
+                "whir_segment": fused.whir_sumcheck_segment,
+                "spartan_segment": fused.spartan_sumcheck_fused}
     card, rates = phase_toolchain(torch)
     phase_build()
-    rows = phase_kernels(torch, dev, rates)
+    rows, segments = phase_kernels(torch, dev, rates)
     mxu_launches = phase_mxu(torch, dev)
     phase_tiny(dev)
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -1252,14 +1538,15 @@ def main() -> int:
     by_path["poseidon2_x1000"], poseidon_export = prove_path(
         torch, dev, "[6]", "poseidon2 x1000",
         lambda: poseidon.hash_chain_circuit(1000), counters, ON_PATH,
-        out_dir / "chip_smoke_profile_poseidon.txt", True)
+        segments["poseidon2_x1000"], POSEIDON_DIGEST, out_dir / "chip_smoke_profile_poseidon.txt", True,
+        out_dir / "chip_smoke_profile_poseidon_unfused.txt")
     by_path["sha256_x100"], _ = prove_path(
         torch, dev, "[7]", "sha256 x100",
         lambda: sha256.chain_circuit(100), counters,
-        ON_PATH + ["butterfly"],
+        ON_PATH + ["butterfly"], segments["sha256_x100"], SHA256_DIGEST,
         out_dir / "chip_smoke_profile_sha256.txt", False)
     by_path["passport_cli"], passport_nps, passport_np = phase_front_door(
-        torch, dev, counters, out_dir)
+        torch, dev, counters, segments["passport_cli"], out_dir)
 
     t9 = time.perf_counter()
     work = out_dir / "recursion"
@@ -1267,7 +1554,8 @@ def main() -> int:
     phase_gnark_export(passport_nps, passport_np, poseidon_export, work)
     passport_nps.unlink()
     del poseidon_export
-    by_path["recursion_cli"] = phase_recursion(counters, work)
+    by_path["recursion_cli"] = phase_recursion(
+        counters, segments["recursion_cli"], work)
     log("[9] " + budget_line("phase 9", time.perf_counter() - t9,
                              PHASE9_BUDGET_S))
     log(f"total {time.perf_counter() - T0:.3f} s")
@@ -1288,9 +1576,11 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": row["shape"], "launches_by_path": per_path})
-        if name == "duplex":
+        if name == "duplex" or name in SEGMENT_KERNELS:
             kernels[-1]["permutations_by_path"] = {
-                p: c["duplex_permutations"] for p, c in by_path.items()}
+                p: c[f"{name}_permutations"] for p, c in by_path.items()}
+        if name in SEGMENT_KERNELS:
+            kernels[-1]["chain_floor_ms"] = row["chain_floor_ms"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

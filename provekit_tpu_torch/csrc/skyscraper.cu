@@ -4,7 +4,7 @@
 // Replaces the TPU kernels provekit_tpu/ops/pallas_kernels.py:compress_pallas
 // (K4) and permute_pallas (K5) (bodies _compress_kernel / _permute_kernel ->
 // hash/skyscraper.py:_permute_core).  All share one 18-step ladder
-// (skyscraper_field.cuh):
+// (skyscraper_field.cuh; the round constants in skyscraper_sponge.cuh):
 //   step k: (l, r) <- (r + f_k(l) + RC[k], l)
 // with f_k a Montgomery square of the canonical value for k not in
 // {6, 7, 10, 11}, and `bar` on those steps: rotate the 32-byte little-endian
@@ -37,34 +37,9 @@
 //                     block.  One launch per transcript operation.
 #include <cuda_runtime.h>
 
-#include "skyscraper_field.cuh"
+#include "skyscraper_sponge.cuh"
 
 namespace {
-
-__device__ __constant__ uint32_t RC[18][8] = {
-    {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u},
-    {0x270bd744u, 0x903c4324u, 0x08a7d269u, 0x873125f7u, 0x06c83855u, 0x081dd279u, 0xea6d7667u, 0x276b1823u},
-    {0x4b378d71u, 0x7ac8edbbu, 0xd99e2cb7u, 0xe29d79f3u, 0x4c1a5a18u, 0x75141791u, 0x58a484a6u, 0x0cf02bd7u},
-    {0x69e5bc36u, 0xfa7adc67u, 0x7cca387du, 0x1c3f8e29u, 0x63481db0u, 0x0eb7730du, 0x18ede544u, 0x25b0e03fu},
-    {0x2f03cfb7u, 0x57847e65u, 0x68873404u, 0x33440b96u, 0x49af80bcu, 0x955a32e8u, 0xbe14ae70u, 0x002882fcu},
-    {0x6257d4d7u, 0x97923139u, 0x1b37d3c1u, 0x29989c3eu, 0x7f1277bau, 0x12ef02b4u, 0x1e2b7a9cu, 0x039ad857u},
-    {0xabbb7887u, 0xb5b48465u, 0xe6ba2d2bu, 0xa72a6bc5u, 0x712f7b29u, 0x4cd48043u, 0x0fc1fc1au, 0x1142d541u},
-    {0x059075d3u, 0x7ab2c156u, 0x047999b2u, 0x17cb3594u, 0x98f289f7u, 0x44f2c935u, 0x69bc0becu, 0x1d78439fu},
-    {0x138b8edbu, 0x05d7a965u, 0xd55c48b1u, 0x36ef35a3u, 0xac6f1628u, 0x8ddfb8a1u, 0x08f4ff82u, 0x258588a5u},
-    {0xfccb49e9u, 0x1596fb9au, 0x9a09a95bu, 0x9a7367d6u, 0x84e4c157u, 0x9bc43f69u, 0xd2f514feu, 0x13087879u},
-    {0x3b4109fau, 0x295ccd23u, 0xed868012u, 0xe1d72f89u, 0x4bc88a8eu, 0x2e9e1eeau, 0x98c45232u, 0x17dadee8u},
-    {0xaa1f486fu, 0x9a8590b4u, 0x30e9130eu, 0xb75834b4u, 0x34d5de31u, 0xb8e90b10u, 0x46e7f4a6u, 0x295c6d15u},
-    {0x4c6eb892u, 0x850adcb7u, 0x05b92fc3u, 0x07699ef3u, 0xa1720f2du, 0x4ef96a2bu, 0x1d3ed446u, 0x1288ca0eu},
-    {0x49d1b5eeu, 0x01960f93u, 0x69371c69u, 0x8ccad307u, 0x91c98662u, 0xe5c81e89u, 0x1ae023f3u, 0x17563b4du},
-    {0x76b32917u, 0x6ba01e94u, 0xdd977bc9u, 0xa1cb0a3au, 0x5815f030u, 0x86815a94u, 0xe91a1eeau, 0x2869043bu},
-    {0x5511d976u, 0x81776c88u, 0x47f414e7u, 0x7475d34fu, 0x095d96cfu, 0x5d090056u, 0xff59e79au, 0x14941f0au},
-    {0x8fc8c034u, 0xbc40b4fdu, 0xcce4fd48u, 0xbb7142c3u, 0x8a39005au, 0x31835675u, 0x90f4379fu, 0x1ce337a1u},
-    {0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u},
-};
-
-struct RcConst {
-  SK_DEV uint32_t operator()(int k, int i) const { return RC[k][i]; }
-};
 
 constexpr int THREADS = 128;
 
@@ -73,7 +48,7 @@ compress_kernel(pk::PlaneView l, pk::PlaneView r, uint32_t* out, int64_t n) {
   int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   pk::store(out, n, e, sk::compress(pk::load(l, e), pk::load(r, e),
-                                    RcConst{}));
+                                    sk::RcConst{}));
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -85,7 +60,7 @@ compress_fold_kernel(const uint32_t* leaves, int leaf_size, int64_t rs,
 #pragma unroll 1
   for (int i = 1; i < leaf_size; ++i)
     h = sk::compress(h, pk::load(pk::PlaneView{leaves + i * is, rs, cs}, e),
-                     RcConst{});
+                     sk::RcConst{});
   pk::store(out, n, e, h);
 }
 
@@ -96,7 +71,7 @@ permute_kernel(pk::PlaneView l, pk::PlaneView r, uint32_t* lo, uint32_t* ro,
   if (e >= n) return;
   sk::Fe a = pk::load(l, e);
   sk::Fe b = pk::load(r, e);
-  sk::ladder(a, b, RcConst{});
+  sk::permute(a, b);
   pk::store(lo, n, e, a);
   pk::store(ro, n, e, b);
 }
@@ -109,13 +84,13 @@ duplex_kernel(pk::PlaneView s, pk::PlaneView a, int k, int start_pos, int n,
   int pos = start_pos;
 #pragma unroll 1
   for (int i = 0; i < k; ++i) {
-    if (pos == 1) sk::ladder(l, r, RcConst{});
+    if (pos == 1) sk::permute(l, r);
     l = pk::load(a, i);
     pos = 1;
   }
 #pragma unroll 1
   for (int i = 0; i < n; ++i) {
-    sk::ladder(l, r, RcConst{});
+    sk::permute(l, r);
     pk::store(out + 2, out_rs, i, l);
   }
   pk::store(out, out_rs, 0, l);

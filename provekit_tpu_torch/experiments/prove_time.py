@@ -1,6 +1,7 @@
 """Time poseidon2 x1000 proves of one checkout of the port on the card.
 
     python3 provekit_tpu_torch/experiments/prove_time.py [--root DIR] [--proves N]
+        [--fuse-max N]
 
 Imports ``provekit_tpu_torch`` from the checkout at ``--root`` (by default
 the one holding this file), builds poseidon2 x1000 at security 128 on CUDA
@@ -11,7 +12,9 @@ SHA-256, the launch counts of the timed proves and their peak device
 memory (and the sponge's permutations, where the checkout counts them).
 It calls only entry points that every slice of the port has, so two
 checkouts (a parent commit unpacked beside this one) can be run in turn in
-one call on one card, each in a fresh process.
+one call on one card, each in a fresh process.  ``--fuse-max`` sets
+``ops.fused.FUSE_MAX`` in a checkout that has the fused sumcheck segments
+(0: every round one at a time, as before them).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", type=Path,
                     default=Path(__file__).resolve().parents[2])
     ap.add_argument("--proves", type=int, default=3)
+    ap.add_argument("--fuse-max", type=int, default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
 
@@ -40,7 +44,7 @@ def main(argv=None) -> int:
     from provekit_tpu_torch.compiler import NoirProofScheme
     from provekit_tpu_torch.fields import vector as V
     from provekit_tpu_torch.hash import skyscraper as S
-    from provekit_tpu_torch.ops import ntt
+    from provekit_tpu_torch.ops import fused, ntt
 
     if not torch.cuda.is_available():
         raise SystemExit("prove_time: needs a CUDA card")
@@ -51,8 +55,15 @@ def main(argv=None) -> int:
                       (S, "duplex_v")):
         if hasattr(mod, name):
             counters[name.removesuffix("_v")] = getattr(mod, name)
+    for name in ("whir_sumcheck_segment", "spartan_sumcheck_fused"):
+        if hasattr(fused, name):
+            counters[name] = getattr(fused, name)
 
     out = {"package": str(Path(provekit_tpu_torch.__file__).parent)}
+    if args.fuse_max is not None:
+        if not hasattr(fused, "FUSE_MAX"):
+            raise SystemExit("prove_time: this checkout has no FUSE_MAX")
+        fused.FUSE_MAX = out["fuse_max"] = args.fuse_max
     t0 = time.perf_counter()
     program, values, _ = poseidon.hash_chain_circuit(1000)
     scheme = NoirProofScheme.from_program(program, security_level=128,

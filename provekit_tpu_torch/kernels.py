@@ -46,6 +46,11 @@ SIGNATURES = {
                       _I64, _P]},
     "mont_mul_mma.cu": {
         "pk_mont_mul_mma": [_P, _P, _P, _P, _I64, _P]},
+    "sumcheck_segment.cu": {
+        "pk_whir_segment": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _I32,
+                            _P, _P, _P, _I64, _P],
+        "pk_spartan_segment": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I32,
+                               _P, _P, _I64, _P]},
 }
 
 _lock = threading.Lock()

@@ -195,7 +195,7 @@ def _blinding_statement_dev(m_commit, alphas_m, com):
 def run_zk_sumcheck_prover(r1cs, z, transcript, m_0: int,
                            blinding_config: WhirConfig, rng):
     """Port of ``run_zk_sumcheck_prover`` (prover/src/whir_r1cs.rs:228-369);
-    every round runs per round (``_spartan_rounds``)."""
+    the rounds run as the reference's hybrid (``_spartan_rounds``)."""
     dev = z.device
     r_c = transcript.challenge_scalars_dev(m_0)     # (16, m_0) canonical
     r_m = D.to_mont(r_c)
@@ -251,20 +251,29 @@ def run_zk_sumcheck_prover(r1cs, z, transcript, m_0: int,
 
 def _spartan_rounds(transcript, abce, claim, prefix, rho_m, g_arr,
                     pms_a, sms_a, sfx_a):
-    """All ZK-Spartan rounds, one at a time: round sums -> [ZK combination +
-    sponge advance] -> fold.  Returns the alphas (16, m_0) canonical."""
+    """All ZK-Spartan rounds, the reference's hybrid
+    (``provekit_tpu/protocol/spartan.py:245-275``): rounds on arrays longer
+    than ``fused.FUSE_MAX`` one at a time, carrying the claim and the
+    blinding prefix into one fused segment for the rest.  Returns the
+    alphas (16, m_0) canonical."""
+    m_0 = g_arr.shape[1]
+    lead = fused.lead_rounds(abce.shape[2], m_0)
     alphas = []
-    for idx in range(g_arr.shape[1]):
-        f0, fm1, finf = sc.spartan_round_stacked(abce)
-        (state2, cs_c, alpha_c, alpha_m, claim,
-         prefix) = fused.spartan_scalar_step(
-            transcript.state, f0.reshape(16, 1), fm1.reshape(16, 1),
-            finf.reshape(16, 1), claim, prefix, g_arr[:, idx],
-            pms_a[:, idx:idx + 1], sms_a[:, idx:idx + 1],
-            sfx_a[:, idx:idx + 1], rho_m)
-        transcript.replay_fused(state2, [cs_c], [("A", 4), ("S", 1)])
-        alphas.append(alpha_c)
-        abce = sc.fold_stacked_msb(abce, alpha_m)
+    if lead:
+        abce, state2, cs, a, claim, prefix = fused.spartan_rounds(
+            abce, transcript.state, claim, prefix, rho_m, g_arr, pms_a,
+            sms_a, sfx_a, lead)
+        transcript.replay_fused(state2, list(cs.unbind(1)),
+                                [("A", 4), ("S", 1)] * lead)
+        alphas.append(a)
+    if lead < m_0:
+        tail = m_0 - lead
+        state2, cs, a = fused.spartan_sumcheck_fused(
+            abce, transcript.state, claim, rho_m, g_arr[:, lead:],
+            pms_a[:, lead:], sms_a[:, lead:], sfx_a[:, lead:], prefix, tail)
+        transcript.replay_fused(state2, list(cs.unbind(1)),
+                                [("A", 4), ("S", 1)] * tail)
+        alphas.append(a)
     return torch.cat(alphas, dim=1)
 
 

@@ -32,15 +32,24 @@ def make_handler(scheme):
             self.wfile.write(body)
 
         def do_POST(self):  # noqa: N802
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                if length < 0:
+                    raise ValueError(f"Content-Length {length}")
+            except ValueError as e:
+                self._reply(400, {"error": f"malformed request: {e}"})
+                return
+            if length > MAX_BODY:
+                self._reply(400, {"error": "body too large"})
+                return
+            # the body is read on every path: closing the connection on
+            # unread bytes resets it, and the client loses the reply
+            body = self.rfile.read(length)
             if self.path != "/api/v1/verify":
                 self._reply(404, {"error": "not found"})
                 return
             try:
-                length = int(self.headers.get("Content-Length", 0))
-                if length > MAX_BODY:
-                    self._reply(400, {"error": "body too large"})
-                    return
-                doc = json.loads(self.rfile.read(length))
+                doc = json.loads(body)
                 transcript = bytes.fromhex(doc["transcript"])
             except (ValueError, KeyError, TypeError) as e:
                 self._reply(400, {"error": f"malformed request: {e}"})

@@ -6,9 +6,9 @@ sumcheck messages, PoW nonces, STIR indices and combination weights stay on
 the device (see ``fs.device``); the host sequences the work and assembles
 the transcript bytes from one final fetch.  STIR index dedup is a sort +
 unique mask + rank on the device that reproduces the verifier's
-``sorted(set(indices))`` and consecutive-powers semantics exactly.  Every
-sumcheck round runs per round (``_sumcheck_rounds``), which emits the same
-messages as the JAX package's fused segments.
+``sorted(set(indices))`` and consecutive-powers semantics exactly.  The
+sumcheck rounds (``_sumcheck_rounds``) take the reference's hybrid: large
+leading rounds one at a time, the tail as one fused segment.
 """
 
 from __future__ import annotations
@@ -201,20 +201,20 @@ def _send_pow_dev(transcript, bits: float) -> None:
 
 
 def _sumcheck_rounds(transcript, fw: torch.Tensor, count: int):
-    """``count`` WHIR sumcheck rounds, one at a time: round sums ->
-    [messages + sponge advance] -> fold.  Returns (folded fw, alphas
-    (16, count) canonical)."""
-    alphas = []
+    """``count`` WHIR sumcheck rounds: the leading rounds on arrays longer
+    than ``fused.FUSE_MAX`` one at a time, then the rest as one fused
+    segment.  Returns (folded fw, alphas (16, count) canonical)."""
     assert count == 0 or transcript.absorb_pos == 0, \
         "rounds must start after a squeeze"
-    for _ in range(count):
-        ev, d, h0, h1, h2 = sc.whir_round_split_dev(fw)
-        state2, msgs_c, alpha_c, alpha_m = fused.whir_scalar_step(
-            transcript.state, h0.reshape(16, 1), h1.reshape(16, 1),
-            h2.reshape(16, 1))
-        transcript.replay_fused(state2, [msgs_c], [("A", 3), ("S", 1)])
-        alphas.append(alpha_c)
-        fw = sc.fold_from_split_dev(ev, d, alpha_m)
+    lead = fused.lead_rounds(fw.shape[2], count)
+    alphas = []
+    for run, k in ((fused.whir_rounds, lead),
+                   (fused.whir_sumcheck_segment, count - lead)):
+        if k:
+            fw, state2, msgs, a = run(fw, transcript.state, k)
+            transcript.replay_fused(state2, list(msgs.unbind(1)),
+                                    [("A", 3), ("S", 1)] * k)
+            alphas.append(a)
     if not alphas:
         return fw, V.zeros((0,), fw.device)
     return fw, torch.cat(alphas, dim=1)

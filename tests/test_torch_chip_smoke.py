@@ -157,3 +157,103 @@ def test_budget_line():
     assert C.budget_line("phase 9", 300.0, 300).endswith(
         "within its budget of 300 s")
     assert "OVER its budget" in C.budget_line("phase 9", 300.5, 300)
+
+
+# -- the fused sumcheck segments ---------------------------------------------
+
+
+def test_segment_shapes_of_the_main_paths(monkeypatch):
+    """poseidon2 x1000 (m = 20, m_0 = 19) and sha256 x100 (m = 24,
+    m_0 = 22) launch the same segments: the Spartan tail of 14 rounds on
+    2^14, the blinding polynomial's two WHIR calls and the witness's four
+    past their leading rounds; none with every round one at a time."""
+    want = [("spartan_segment", 1 << 14, 14),
+            ("whir_segment", 256, 4), ("whir_segment", 16, 4),
+            ("whir_segment", 1 << 14, 2), ("whir_segment", 4096, 4),
+            ("whir_segment", 256, 4), ("whir_segment", 16, 4)]
+    assert C.segment_shapes(C.scheme_for(515_003, 515_005)) == want
+    assert C.segment_shapes(C.scheme_for(3_138_745, 4_630_312)) == want
+    from provekit_tpu_torch.ops import fused
+    monkeypatch.setattr(fused, "FUSE_MAX", 0)
+    assert C.segment_shapes(C.scheme_for(515_003, 515_005)) == []
+
+
+@pytest.mark.parametrize("fuse_max", [4, 1 << 14])
+def test_segment_shapes_are_a_proves_launches(monkeypatch, fuse_max):
+    """What segment_shapes predicts is what a prove launches, recorded by
+    recorded_segments (phase 5's system of 8 steps, on the CPU)."""
+    import random
+
+    from provekit_tpu_torch.ops import fused
+    r1cs, witness = C.build_tiny_system(seed=3, n_mults=8)
+    scheme = C.tiny_scheme(r1cs, "cpu")
+    monkeypatch.setattr(fused, "FUSE_MAX", fuse_max)
+    segment = fused.whir_sumcheck_segment
+    with C.recorded_segments() as calls:
+        scheme.prove(r1cs, witness, rng=random.Random(11))
+    assert fused.whir_sumcheck_segment is segment
+    want = C.segment_shapes(scheme)
+    assert calls == want
+    assert want[0] == ("spartan_segment", 1 << scheme.m_0, scheme.m_0) \
+        or fuse_max < 1 << scheme.m_0
+
+
+def test_segment_work():
+    # WHIR, n = 8, 3 rounds: 4 + 2 + 1 pairs of 6 products, 4 a round;
+    # 9 permutations; 2 x 8 + 2 elements in, 2 + 2 + 12 out
+    nbytes, ops, perms = C.segment_work("whir_segment", 8, 3)
+    assert perms == 9
+    assert nbytes == 64 * (18 + 16)
+    assert ops == {"int32_muladd": (6 * 7 + 4 * 3) * 264 + 9 * 14 * 208}
+    # Spartan, n = 8, 3 rounds: 7 pairs of 6 products, folds of 4 on the
+    # 4 + 2 pairs before the last round, 21 a round; 12 permutations
+    nbytes, ops, perms = C.segment_work("spartan_segment", 8, 3)
+    assert perms == 12
+    assert nbytes == 64 * (32 + 5 + 21 + 2 + 15)
+    assert ops == {"int32_muladd": (6 * 7 + 4 * 6 + 21 * 3) * 264
+                   + 12 * 14 * 208}
+    assert C.segment_work("spartan_segment", 1, 0)[1:] == (
+        {"int32_muladd": 0}, 0)
+
+
+def test_path_segment_shapes_cover_the_four_paths():
+    """Phase 3 runs the segments at the shapes of all four paths: the
+    passport (m = 23) and the mul_chain inner prove (m_0 = 1) launch shapes
+    that poseidon2 x1000 and sha256 x100 never do."""
+    paths = C.path_segment_shapes()
+    assert set(paths) == {"poseidon2_x1000", "sha256_x100", "passport_cli",
+                          "recursion_cli"}
+    assert paths["passport_cli"] == [
+        ("spartan_segment", 1 << 14, 14),
+        ("whir_segment", 256, 4), ("whir_segment", 16, 4),
+        ("whir_segment", 1 << 14, 3), ("whir_segment", 2048, 4),
+        ("whir_segment", 128, 4), ("whir_segment", 8, 3)]
+    assert paths["recursion_cli"] == [("spartan_segment", 2, 1),
+                                      ("whir_segment", 8, 3),
+                                      ("whir_segment", 16, 4)]
+    assert paths["sha256_x100"] == paths["poseidon2_x1000"]
+
+
+def test_check_segments_fails_on_other_shapes(capsys):
+    calls = [("whir_segment", 8, 3)]
+    C.check_segments("[9] mul_chain", calls, list(calls))
+    with pytest.raises(SystemExit):
+        C.check_segments("[9] mul_chain", calls,
+                         [("whir_segment", 16, 4)])
+
+
+def test_recorded_segments_keep_the_launch_counts():
+    """A wrapper counts under its module name, which inside the block is
+    the recorder: what it counts there reaches the wrapper's own count, as
+    the passport's and the inner prove's counts read after the block
+    need."""
+    from provekit_tpu_torch.ops import fused
+    whir, spartan = fused.whir_sumcheck_segment, fused.spartan_sumcheck_fused
+    before = (whir.launches, whir.permutations, spartan.launches)
+    with C.recorded_segments():
+        fused.whir_sumcheck_segment.launches += 1
+        fused.whir_sumcheck_segment.permutations += 9
+        fused.spartan_sumcheck_fused.launches += 1
+    assert (whir.launches, whir.permutations, spartan.launches) == (
+        before[0] + 1, before[1] + 9, before[2] + 1)
+    whir.launches, whir.permutations, spartan.launches = before

@@ -189,3 +189,70 @@ def test_tiny_digest_on_card(cuda):
     assert hashlib.sha256(proof).hexdigest() == (
         "efa6851f51a1090ab1139f427a9a67daa4b2c16037937f0e853bb8db0c5cbfb0")
     scheme.verify(r, proof)
+
+
+def segment_planes(n: int, seed: int, edge: bool, device) -> torch.Tensor:
+    """(16, n) Montgomery operands of a segment: random canonical values,
+    or the edge values 0, 1 and P - 1 in a seeded order."""
+    if not edge:
+        return canonical(n, seed, device)
+    rng = np.random.default_rng(seed)
+    return V.pack([int(v) for v in rng.choice([0, 1, F.P - 1], size=n)],
+                  device)
+
+
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("n,count", [(8, 0), (8, 1), (8, 3), (1 << 10, 1),
+                                     (1 << 10, 10), (1 << 14, 2)])
+def test_whir_segment_kernel(cuda, n, count, edge):
+    from provekit_tpu_torch.ops import fused
+    # fw as a strided view (element stride 2), the state as a block's view
+    fw = segment_planes(4 * n, 50 + count, edge, cuda).reshape(
+        16, 2, 2 * n)[:, :, 0::2]
+    block = segment_planes(5, 60 + count, edge, cuda)
+    state = block[:, 1:3]
+    before = (fused.whir_sumcheck_segment.launches,
+              fused.whir_sumcheck_segment.permutations)
+    got = fused.whir_sumcheck_segment(fw, state, count)
+    assert (fused.whir_sumcheck_segment.launches,
+            fused.whir_sumcheck_segment.permutations) == (
+        before[0] + 1, before[1] + 3 * count)
+    for want in (fused.whir_sumcheck_segment_plain(fw, state, count),
+                 fused.whir_rounds(fw, state, count)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("m,lead", [(0, 0), (1, 0), (3, 1), (10, 0),
+                                    (14, 12)])
+def test_spartan_segment_kernel(cuda, m, lead, edge):
+    from provekit_tpu_torch.ops import fused
+    n = 1 << m
+    seed = 70 + m + lead
+    abce = segment_planes(4 * n, seed, edge, cuda).reshape(16, 4, n)
+    cols = segment_planes(5 + 7 * m, seed + 1, edge, cuda)
+    state, claim, rho, prefix = (cols[:, :2], cols[:, 2:3], cols[:, 3:4],
+                                 cols[:, 4:5])
+    pms, sms, sfx = (cols[:, 5 + k * m:5 + (k + 1) * m] for k in range(3))
+    g = cols[:, 5 + 3 * m:].reshape(16, m, 4)
+    abce, state, _, _, claim, prefix = fused.spartan_rounds(
+        abce, state, claim, prefix, rho, g, pms, sms, sfx, lead)
+    args = (abce, state, claim, rho, g[:, lead:], pms[:, lead:],
+            sms[:, lead:], sfx[:, lead:], prefix, m - lead)
+    before = fused.spartan_sumcheck_fused.launches
+    got = fused.spartan_sumcheck_fused(*args)
+    assert fused.spartan_sumcheck_fused.launches == before + 1
+    want = fused.spartan_sumcheck_fused_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("fuse_max", [0, 4, 1 << 14])
+def test_tiny_digest_on_card_at_every_split(cuda, monkeypatch, fuse_max):
+    from provekit_tpu_torch.ops import fused
+    monkeypatch.setattr(fused, "FUSE_MAX", fuse_max)
+    before = (fused.whir_sumcheck_segment.launches,
+              fused.spartan_sumcheck_fused.launches)
+    test_tiny_digest_on_card(cuda)
+    launched = (fused.whir_sumcheck_segment.launches > before[0],
+                fused.spartan_sumcheck_fused.launches > before[1])
+    assert launched == ((False, False) if fuse_max == 0 else (True, True))

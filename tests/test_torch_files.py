@@ -171,6 +171,22 @@ def test_verify_service_answers(inverse_proofs):
     assert odd == [400, 400, 400]
 
 
+def test_verify_service_reads_the_body_it_refuses():
+    """A large body to an unknown path still gets its 404: the service
+    reads the body before it replies and closes, as closing on unread
+    bytes resets the connection and the client loses the answer."""
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(None))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        got = [chip_smoke.post(httpd.server_port, "/api/v1/prove",
+                               b"0" * (8 << 20)) for _ in range(3)]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert got == [404, 404, 404]
+
+
 # -- bodies and JSON forms ----------------------------------------------------
 
 

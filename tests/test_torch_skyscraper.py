@@ -107,8 +107,10 @@ def test_permute_zero():
 
 
 def test_cuda_round_constants_match():
-    """csrc/skyscraper.cu carries the protocol's 18 round constants."""
-    src = (CSRC / "skyscraper.cu").read_text()
+    """csrc/skyscraper_sponge.cuh, which skyscraper.cu and
+    sumcheck_segment.cu include, carries the protocol's 18 round
+    constants."""
+    src = (CSRC / "skyscraper_sponge.cuh").read_text()
     table = re.search(r"RC\[18\]\[8\] = \{(.*?)\n\};", src, re.S).group(1)
     rows = re.findall(r"\{([^}]*)\}", table)
     got = [sum(int(x.strip().rstrip("u"), 16) << (32 * k)
