@@ -8,7 +8,8 @@ Phases, one or more lines each:
      torch, CUDA, nvcc);
   2. build of the CUDA kernels from provekit_tpu_torch/csrc (one nvcc per
      source, in parallel), with its time and what ptxas reports of the
-     Skyscraper kernels (registers, spills);
+     Skyscraper and segment kernels (registers, spills); it fails if either
+     segment kernel spills;
   3. each kernel against its plain torch version on the card at the shapes
      its path gives it: exact equality, both times (CUDA events, median) and
      the kernel's bound.  The butterfly runs at the sha256 x100 path's shape
@@ -23,12 +24,16 @@ Phases, one or more lines each:
      wall clock; the duplex absorbs and squeezes at the transcript's counts
      and in the fused round steps' calls, and the sponge's serial chain runs
      as 200 permute calls beside one 200-output squeeze.  The fused
-     sumcheck segments (csrc/sumcheck_segment.cu) run at every (n, rounds)
-     that a prove of each of the four paths of phases 6-9 launches
-     (poseidon2 x1000, sha256 x100, the passport, the mul_chain inner
-     prove), with their bound and the floor of the sponge's serial chain,
-     and at 0, 1 and all rounds on the edge values 0, 1 and P - 1; each
-     path's prove is then held to launch exactly those shapes;
+     sumcheck segments (csrc/sumcheck_segment.cu, cooperative launches over
+     the card) run at every (n, rounds) that a prove of each of the four
+     paths of phases 6-9 launches (poseidon2 x1000, sha256 x100, the
+     passport, the mul_chain inner prove; every sumcheck is one launch),
+     held to the plain version up to 2^20 elements and to the same
+     per-round loop in plain torch on the card above, with their bound and
+     the floor of the sponge's serial chain; at the one-block design's
+     shapes (2^14, 14) and (2^14, 2); and at 0, 1 and all rounds on the
+     edge values 0, 1 and P - 1; each path's prove is then held to launch
+     exactly those shapes;
   4. the tensor-core Montgomery experiment (experiments/mxu_mont.py);
   5. the tiny scheme on the card: pinned proof digest, verify, tamper;
   6. poseidon2 x1000 at security 128 through the port's entry points:
@@ -36,11 +41,12 @@ Phases, one or more lines each:
      launches held to the shapes phase 3 ran for this path), a timed prove (its five
      spans, each kernel's launch count, the sponge's permutations, the peak
      device memory and the pinned proof digest), one more prove under
-     torch.profiler (device busy share and the share of the kernels that
-     run the Skyscraper ladder; the kernel table goes to
-     chiprun_out/chip_smoke_profile_poseidon.txt), then a warm-up, a timed
-     and a profiled prove with FUSE_MAX = 0 (every sumcheck round one at a
-     time, no segment; chip_smoke_profile_poseidon_unfused.txt), verify, and a
+     torch.profiler, recording device kernels only (device busy share and
+     the share of the kernels that run the Skyscraper ladder; the kernel
+     table goes to chiprun_out/chip_smoke_profile_poseidon.txt), then a
+     warm-up, a timed and a profiled prove with FUSE_MAX = 0 (every
+     sumcheck round one at a time, no segment;
+     chip_smoke_profile_poseidon_unfused.txt), verify, and a
      flipped byte rejected;
   7. sha256 x100 (RS domain 2^25) at security 128, the same stages but the
      FUSE_MAX = 0 proves, with a progress line per stage;
@@ -290,10 +296,41 @@ def phase_toolchain(torch):
     return card, rates
 
 
+def ptxas_spills(report: str) -> dict:
+    """Kernel (mangled name) -> (spill store bytes, spill load bytes), from
+    what ``ptxas -v`` printed for one source."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found and name:
+            out[name] = (int(found.group(1)), int(found.group(2)))
+            name = None
+    return out
+
+
+def check_segment_spills(report: str) -> None:
+    """Fail unless ptxas reported both segment kernels, neither spilling."""
+    spills = ptxas_spills(report)
+    for kernel in ("whir_segment_kernel", "spartan_segment_kernel"):
+        mine = [v for k, v in spills.items() if kernel in k]
+        if not mine:
+            fail(f"ptxas reported nothing of {kernel}")
+        if any(v != (0, 0) for v in mine):
+            fail(f"{kernel} spills: {mine} bytes (stores, loads)")
+    log("[2] sumcheck_segment.cu: neither segment kernel spills")
+
+
 def phase_build():
     from provekit_tpu_torch import kernels as K
     t0 = time.perf_counter()
-    reports = K.build()
+    # the segments are compiled in any case: their spills are checked
+    reports = K.build(force=("sumcheck_segment.cu",))
     K.lib()
     log(f"[2] {len(K.SIGNATURES)} kernel libraries built in "
         f"{time.perf_counter() - t0:.3f} s")
@@ -301,6 +338,7 @@ def phase_build():
         for line in reports.get(src, "").splitlines():
             if "ptxas info" in line or "spill" in line:
                 log(f"[2] {src} {line.strip()}")
+    check_segment_spills(reports["sumcheck_segment.cu"])
 
 
 class Rows:
@@ -312,7 +350,7 @@ class Rows:
         self.rows = {}
 
     def check(self, name, shape, got, want, ms=None, plain_ms=None,
-              nbytes=None, ops=None, **row):
+              nbytes=None, ops=None, record=True, **row):
         self.torch.cuda.synchronize()
         err = max_abs_err(self.torch, got, want)
         line = f"[3] {name} {shape}: equal={err == 0}"
@@ -327,7 +365,7 @@ class Rows:
         log(line)
         if err:
             fail(f"{name} {shape} disagrees with its plain version")
-        if row:
+        if row and record:
             self.rows[name] = dict(row, max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, shape=shape)
         return err
@@ -578,16 +616,24 @@ def phase_skyscraper(torch, rows, dev, a, b):
 
 def segment_args(torch, rng, dev, kind: str, n: int, rounds: int,
                  edge: bool) -> tuple:
-    """Arguments of a segment wrapper: random canonical planes, or the
-    edge values 0, 1 and P - 1 in a seeded order."""
+    """Arguments of a segment wrapper: random canonical planes, drawn on the
+    card from a seed of ``rng`` (a 2^24 WHIR call takes 2^25 elements), or
+    the edge values 0, 1 and P - 1 in a seeded order."""
     from provekit_tpu_torch.fields import bn254 as F
     from provekit_tpu_torch.fields import vector as V
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
 
     def planes(k):
         if edge:
             return V.pack([int(v) for v in rng.choice([0, 1, F.P - 1],
                                                        size=k)], dev)
-        return random_planes(torch, rng, k, dev)
+        digits = torch.randint(0, 1 << 16, (16, k), generator=gen,
+                               device=dev, dtype=torch.int32)
+        # top digit below P's: every value below P
+        digits[15] = torch.randint(0, 0x3064, (k,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        return digits
 
     if kind == "whir_segment":
         return planes(2 * n).reshape(16, 2, n), planes(2), rounds
@@ -596,6 +642,35 @@ def segment_args(torch, rng, dev, kind: str, n: int, rounds: int,
     return (abce, c[:, :2], c[:, 2:3], c[:, 3:4],
             c[:, 5 + 3 * r:].reshape(16, r, 4), c[:, 5:5 + r],
             c[:, 5 + r:5 + 2 * r], c[:, 5 + 2 * r:5 + 3 * r], c[:, 4:5], r)
+
+
+def segment_per_round(kind: str, args: tuple) -> tuple:
+    """A segment wrapper's outputs from ``fused.whir_rounds`` /
+    ``fused.spartan_rounds``, the rounds one at a time on the operands'
+    device in plain torch alone: while the loop runs, ``V.mont_mul`` is
+    ``V.mont_mul_plain`` and ``S.duplex_v`` is ``S.duplex_plain``, so no
+    kernel of the port takes part (the segments run the duplex's
+    permutation, which must not check itself).  Fails if a kernel
+    launched all the same."""
+    from provekit_tpu_torch.fields import vector as V
+    from provekit_tpu_torch.hash import skyscraper as S
+    from provekit_tpu_torch.ops import fused
+    kernels = (V.mont_mul, S.duplex_v)
+    before = [fn.launches for fn in kernels]
+    V.mont_mul, S.duplex_v = V.mont_mul_plain, S.duplex_plain
+    try:
+        if kind == "whir_segment":
+            out = fused.whir_rounds(*args)
+        else:
+            abce, state, claim, rho, g, pms, sms, sfx, prefix, m = args
+            _, state, coeffs, alphas, _, _ = fused.spartan_rounds(
+                abce, state, claim, prefix, rho, g, pms, sms, sfx, m)
+            out = state, coeffs, alphas
+    finally:
+        V.mont_mul, S.duplex_v = kernels
+    if [fn.launches for fn in kernels] != before:
+        fail(f"{kind}: a kernel launched in the plain per-round reference")
+    return out
 
 
 def path_segment_shapes() -> dict:
@@ -621,16 +696,30 @@ def path_segment_shapes() -> dict:
             "recursion_cli": segment_shapes(mul_chain.whir_for_witness)}
 
 
+# Phase 3 holds a segment launch on at most this many elements to the plain
+# version (the per-round loop on CPU copies); a longer one (2^21 - 2^24, the
+# passport's and sha256 x100's) to the same loop in plain torch on the
+# card's tensors (segment_per_round): on the CPU it would take minutes.
+SEGMENT_PLAIN_MAX = 1 << 20
+# the largest shapes of the earlier design, whose segments ran on one block
+# and took at most 2^14 elements (no path launches them now that every
+# sumcheck is one launch), timed to compare the two designs
+ONE_BLOCK_SEGMENT_SHAPES = [("whir_segment", 1 << 14, 2),
+                            ("spartan_segment", 1 << 14, 14)]
+
+
 def phase_segments(torch, rng, rows, dev) -> dict:
     """The fused sumcheck segments (csrc/sumcheck_segment.cu) against their
-    plain versions (the per-round loop on CPU copies): at every (n, rounds)
-    that a prove of one of the four paths launches
-    (:func:`path_segment_shapes`), on random inputs, with the kernel's time,
-    the plain version's, the bound and the sponge chain's floor (the
-    segment's permutations at this run's duplex time a permutation); then
-    at 0 rounds, 1 and full depth on the edge values 0, 1 and P - 1.  The
-    row of each kernel is its largest shape.  Returns the paths' shapes,
-    which their proves must launch."""
+    references at every (n, rounds) that a prove of one of the four paths
+    launches (:func:`path_segment_shapes`) and at the one-block design's
+    shapes, on random
+    inputs: the plain version up to SEGMENT_PLAIN_MAX elements, the same
+    per-round loop in plain torch on the card above; with the kernel's time, the
+    reference's, the bound and the sponge chain's floor (the segment's
+    permutations at this run's duplex time a permutation); then at 0 rounds,
+    1 and full depth on the edge values 0, 1 and P - 1, also on a grid of
+    every SM.  The row of each kernel is its largest path shape.  Returns the paths' shapes, which their proves must
+    launch."""
     from provekit_tpu_torch.ops import fused
     from provekit_tpu_torch.utils.profiling import cuda_ms
     kernel = {"whir_segment": fused.whir_sumcheck_segment,
@@ -646,25 +735,38 @@ def phase_segments(torch, rng, rows, dev) -> dict:
 
     paths = path_segment_shapes()
     log(f"[3] segment launches (kernel, n, rounds) of one prove: {paths}")
-    # ascending, so that each kernel's row (its last with a bound) is its
-    # largest shape
+    on_path = {c for calls in paths.values() for c in calls}
+    # ascending, so that each kernel's row (its last recorded) is its
+    # largest path shape
     measured = {}
-    for kind, n, r in sorted({c for calls in paths.values() for c in calls}):
+    for kind, n, r in sorted(on_path | set(ONE_BLOCK_SEGMENT_SHAPES)):
         args = segment_args(torch, rng, dev, kind, n, r, False)
-        want, plain_ms = timed_once(torch, lambda: plain[kind](*args))
+        if n <= SEGMENT_PLAIN_MAX:
+            ref = "plain version (CPU copies)"
+            want, plain_ms = timed_once(torch, lambda: plain[kind](*args))
+        else:
+            ref = "plain per-round loop on the card"
+            want, plain_ms = timed_once(
+                torch, lambda: segment_per_round(kind, args))
         ms = cuda_ms(lambda: kernel[kind](*args), 10)
         nbytes, ops, perms = segment_work(kind, n, r)
         chain_ms = perms * per_perm_ms
-        rows.check(kind, f"n={n} rounds={r}", flat(kernel[kind](*args)),
-                   flat(want), ms, plain_ms, nbytes=nbytes, ops=ops,
+        tag = "" if (kind, n, r) in on_path else ", one-block design's shape"
+        rows.check(kind, f"n={n} rounds={r} against the {ref}{tag}",
+                   flat(kernel[kind](*args)), flat(want), ms, plain_ms,
+                   nbytes=nbytes, ops=ops,
+                   record=(kind, n, r) in on_path,
                    source="sumcheck_segment.cu", replaces=replaces[kind],
                    chain_floor_ms=chain_ms)
+        del want
         log(f"[3] {kind} n={n} rounds={r}: {perms} permutations, the "
             f"sponge chain's floor {chain_ms:.4f} ms at {per_perm_ms:.5f} ms "
             f"a permutation; 20 launches back to back, per launch "
             f"{back_to_back_ms(torch, lambda: kernel[kind](*args)):.4f} ms")
         measured[kind, n, r] = (ms, bound(nbytes, ops, rows.rates)[0],
                                 chain_ms)
+        del args
+    torch.cuda.empty_cache()
     for path, calls in paths.items():
         for kind in SEGMENT_KERNELS:
             mine = [measured[c] for c in calls if c[0] == kind]
@@ -673,9 +775,9 @@ def phase_segments(torch, rng, rows, dev) -> dict:
                 f"bound {sum(m[1] for m in mine):.4f} ms, the sponge "
                 f"chain's floor {sum(m[2] for m in mine):.4f} ms")
     for kind, cases in (("whir_segment", [(8, 0), (8, 1), (8, 3),
-                                          (1 << 10, 10)]),
+                                          (1 << 10, 10), (1 << 17, 17)]),
                         ("spartan_segment", [(1, 0), (2, 1), (8, 3),
-                                             (1 << 10, 10)])):
+                                             (1 << 10, 10), (1 << 17, 17)])):
         for n, r in cases:
             args = segment_args(torch, rng, dev, kind, n, r, True)
             rows.check(kind, f"edge values, n={n} rounds={r}",
@@ -897,20 +999,19 @@ SKYSCRAPER_KERNELS = ("compress_kernel", "compress_fold_kernel",
                       "whir_segment_kernel", "spartan_segment_kernel")
 
 
-def profile_prove(torch, whir, r1cs, witness, path, tag, cpu) -> dict:
-    """One more prove under torch.profiler: kernel table, device busy share
-    (summed kernel time over the prove's wall time) and the device time of
-    the kernels that run the Skyscraper ladder (the duplex's per
-    permutation) written to ``path``.  ``cpu`` also records the host's
-    operators (their table follows), which takes minutes to aggregate on
-    the sha256 path.  Returns the wall seconds, the busy seconds and the
-    number of device kernels."""
+def profile_prove(torch, whir, r1cs, witness, path, tag) -> dict:
+    """One more prove under torch.profiler, recording the device's kernels
+    only (the host's operators of a per-round prove take minutes to
+    aggregate, and every profiled prove bears the same load): kernel table,
+    device busy share (summed kernel time over the prove's wall time) and
+    the device time of the kernels that run the Skyscraper ladder (the
+    duplex's per permutation) written to ``path``.  Returns the wall
+    seconds, the busy seconds and the number of device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from provekit_tpu_torch.hash import skyscraper as S
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     perms = S.duplex_v.permutations
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         whir.prove(r1cs, witness, rng=random.Random(2))
         torch.cuda.synchronize()
@@ -939,11 +1040,8 @@ def profile_prove(torch, whir, r1cs, witness, path, tag, cpu) -> dict:
                + f"; duplex {perms} permutations, "
                f"{duplex_us / max(perms, 1):.2f} us of device time each")
     path.parent.mkdir(parents=True, exist_ok=True)
-    tables = [events.table(sort_by="self_cuda_time_total", row_limit=40)]
-    if cpu:
-        tables.append(events.table(sort_by="self_cpu_time_total",
-                                   row_limit=25))
-    path.write_text("\n\n".join([summary, *tables]))
+    path.write_text(summary + "\n\n" + events.table(
+        sort_by="self_cuda_time_total", row_limit=40))
     log(f"{tag} {summary} -> {path}")
     return {"wall_s": wall, "busy_s": busy_us / 1e6, "kernels": launches}
 
@@ -1051,7 +1149,7 @@ def recorded_segments():
 
 
 def prove_path(torch, dev, tag, name, build, counters, expect, segments,
-               digest, profile_to, profile_cpu, unfused_profile_to=None):
+               digest, profile_to, unfused_profile_to=None):
     """One circuit through the port's entry points: build, from_program,
     solve_witness, a warm-up prove (its segment launches must be
     ``segments``, the shapes phase 3 ran for this path), a timed prove with
@@ -1118,8 +1216,7 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
 
     rng_state = rng.getstate()
     proof, launches = timed("prove")
-    fused = profile_prove(torch, whir, r1cs, witness, profile_to, tag,
-                          profile_cpu)
+    fused = profile_prove(torch, whir, r1cs, witness, profile_to, tag)
     if unfused_profile_to is not None:
         saved, fused_ops.FUSE_MAX = fused_ops.FUSE_MAX, 0
         try:
@@ -1127,7 +1224,7 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
             rng.setstate(rng_state)  # the timed prove's draws: its digest
             _, unfused_launches = timed("prove_unfused")
             unfused = profile_prove(torch, whir, r1cs, witness,
-                                    unfused_profile_to, tag, profile_cpu)
+                                    unfused_profile_to, tag)
         finally:
             fused_ops.FUSE_MAX = saved
         if any(unfused_launches[k] for k in SEGMENT_KERNELS):
@@ -1538,13 +1635,14 @@ def main() -> int:
     by_path["poseidon2_x1000"], poseidon_export = prove_path(
         torch, dev, "[6]", "poseidon2 x1000",
         lambda: poseidon.hash_chain_circuit(1000), counters, ON_PATH,
-        segments["poseidon2_x1000"], POSEIDON_DIGEST, out_dir / "chip_smoke_profile_poseidon.txt", True,
+        segments["poseidon2_x1000"], POSEIDON_DIGEST,
+        out_dir / "chip_smoke_profile_poseidon.txt",
         out_dir / "chip_smoke_profile_poseidon_unfused.txt")
     by_path["sha256_x100"], _ = prove_path(
         torch, dev, "[7]", "sha256 x100",
         lambda: sha256.chain_circuit(100), counters,
         ON_PATH + ["butterfly"], segments["sha256_x100"], SHA256_DIGEST,
-        out_dir / "chip_smoke_profile_sha256.txt", False)
+        out_dir / "chip_smoke_profile_sha256.txt")
     by_path["passport_cli"], passport_nps, passport_np = phase_front_door(
         torch, dev, counters, segments["passport_cli"], out_dir)
 

@@ -12,13 +12,11 @@ with CUDA events (median):
   - the sponge's serial chain of 200 dependent permutations as n = 1
     ``permute_v`` calls, and as one ``duplex_v`` squeeze where the checkout
     has it; each also on the host clock;
-  - mont_mul at n = 2^21, a kernel neither design changes, as the control;
-  - where the checkout has the fused sumcheck segments, each at every
-    (n, rounds) that a poseidon2 x1000 or sha256 x100 prove launches, one
-    launch and 20 queued back to back (per launch).
+  - mont_mul at n = 2^21, a kernel neither design changes, as the control.
 It counts the SASS instructions of the checkout's Skyscraper and segment
 kernels (``cuobjdump -sass``) and prints ptxas's registers and spills of
-``sumcheck_segment.cu``.  The inputs come from one numpy seed, and each
+``sumcheck_segment.cu``; ``chip_smoke.py`` (phase 3) times the segments and
+``segment_time.py`` breaks their time down.  The inputs come from one numpy seed, and each
 result's SHA-256 is printed, so two checkouts (a parent commit unpacked
 beside this one) can be run in turn in one call and held to the same
 answers.  It prints the card's name and power limit, then one JSON line.
@@ -39,9 +37,6 @@ from pathlib import Path
 
 SEED = 20261017
 CHAIN = 200
-SEGMENT_SHAPES = [("whir_segment", 1 << 14, 2), ("whir_segment", 4096, 4),
-                  ("whir_segment", 256, 4), ("whir_segment", 16, 4),
-                  ("spartan_segment", 1 << 14, 14)]
 
 
 def sass_counts(library: Path) -> dict:
@@ -68,43 +63,6 @@ def sass_counts(library: Path) -> dict:
             ops[m.group(2)] += 1
     return {k: {"instructions": sum(c.values()), "top": dict(c.most_common(8))}
             for k, c in out.items()}
-
-
-def time_segments(torch, planes, digest, cuda_ms) -> list:
-    """Each of SEGMENT_SHAPES on seeded inputs: one launch between CUDA
-    events (median of 10), 20 launches queued back to back (per launch)
-    and the result's SHA-256."""
-    from provekit_tpu_torch.ops import fused
-
-    def back_to_back(fn, reps: int = 20) -> float:
-        fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    rows = []
-    for kind, n, r in SEGMENT_SHAPES:
-        if kind == "whir_segment":
-            call = (planes(2, n), planes(2), r)
-            fn = fused.whir_sumcheck_segment
-        else:
-            c = planes(5 + 7 * r)
-            call = (planes(4, n), c[:, :2], c[:, 2:3], c[:, 3:4],
-                    c[:, 5 + 3 * r:].reshape(16, r, 4), c[:, 5:5 + r],
-                    c[:, 5 + r:5 + 2 * r], c[:, 5 + 2 * r:5 + 3 * r],
-                    c[:, 4:5], r)
-            fn = fused.spartan_sumcheck_fused
-        got = torch.cat([t.reshape(16, -1) for t in fn(*call)], dim=1)
-        rows.append({"kernel": kind, "n": n, "rounds": r,
-                     "ms": cuda_ms(lambda: fn(*call), 10),
-                     "back_to_back_ms": back_to_back(lambda: fn(*call)),
-                     "sha256": digest(got)})
-    return rows
 
 
 def main(argv=None) -> int:
@@ -196,8 +154,6 @@ def main(argv=None) -> int:
     out["leaf_hash_launches"] = launches() - before
     out["leaf_hash_ms"] = cuda_ms(lambda: merkle.hash_leaves(leaves), 5)
     del leaves
-    if segments:
-        out["segments"] = time_segments(torch, planes, digest, cuda_ms)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
-# C signatures of the entry points, by source (csrc/*.cu); all return int.
+# C signatures of the entry points, by source (csrc/*.cu); all return int
+# (a CUDA error, or for pk_segment_max_blocks the segments' grid limit).
 SIGNATURES = {
     "mont_mul.cu": {
         "pk_mont_mul": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P]},
@@ -48,9 +49,10 @@ SIGNATURES = {
         "pk_mont_mul_mma": [_P, _P, _P, _P, _I64, _P]},
     "sumcheck_segment.cu": {
         "pk_whir_segment": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _I32,
-                            _P, _P, _P, _I64, _P],
+                            _P, _P, _P, _I64, _P, _P],
         "pk_spartan_segment": [_P, _I64, _I64, _I64, _P, _I64, _I64, _I32,
-                               _P, _P, _I64, _P]},
+                               _P, _P, _I64, _P, _P],
+        "pk_segment_max_blocks": []},
 }
 
 _lock = threading.Lock()
@@ -75,14 +77,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> dict[str, str]:
-    """Compile every csrc/*.cu that is not up to date, one nvcc per source,
-    all running at once; returns, for each source compiled now, what ptxas
-    said of its kernels (registers, shared memory, spills)."""
+def build(force: tuple = ()) -> dict[str, str]:
+    """Compile every csrc/*.cu that is not up to date, and those named in
+    ``force`` in any case, one nvcc per source, all running at once; returns,
+    for each source compiled now, what ptxas said of its kernels (registers,
+    shared memory, spills)."""
     outs = {src: library_path(src) for src in SIGNATURES}
     jobs = []
     for src, out in outs.items():
-        if out.exists():
+        if out.exists() and src not in force:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

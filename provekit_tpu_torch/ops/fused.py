@@ -10,11 +10,13 @@ absorb/squeeze pattern is static.
 * :func:`whir_rounds` and :func:`spartan_rounds` run rounds one at a time:
   the round sums, the scalar step (one duplex launch) and the fold, each a
   few launches.  The provers run the leading rounds this way, those on
-  arrays longer than :data:`FUSE_MAX` (:func:`lead_rounds`).
+  arrays longer than :data:`FUSE_MAX` (:func:`lead_rounds`): none on the
+  repository's circuits at the default.
 * :func:`whir_sumcheck_segment` and :func:`spartan_sumcheck_fused` run all
-  remaining rounds in one launch of ``csrc/sumcheck_segment.cu`` on a CUDA
-  tensor (counted in ``.launches``, their sponge permutations in
-  ``.permutations``), or raise.  A CPU tensor takes the plain version beside
+  remaining rounds in one cooperative launch of
+  ``csrc/sumcheck_segment.cu`` over the card on a CUDA tensor (counted in
+  ``.launches``, their sponge permutations in ``.permutations``), or
+  raise.  A CPU tensor takes the plain version beside
   each, :func:`whir_sumcheck_segment_plain` and
   :func:`spartan_sumcheck_fused_plain`: the per-round loop on CPU copies of
   the inputs (plain torch limb ops and ``S.duplex_plain`` there), its
@@ -35,11 +37,12 @@ from ..hash import skyscraper as S
 from . import sumcheck as sc
 
 
-# Rounds on arrays longer than this run one at a time, their launches spread
-# over the whole card; the remaining rounds, on arrays of at most FUSE_MAX
-# elements, run as one segment launch on one SM: the segment kernels'
-# capacity (the reference's default split, provekit_tpu/whir/prover.py:264).
-FUSE_MAX = 1 << 14
+# Rounds on arrays longer than this run one at a time; the remaining rounds
+# run as one segment launch over the whole card.  The default sets no limit
+# of its own: 2^32 elements, whose 32 rounds are the most a Spartan segment
+# takes (its scalars' room in shared memory), so every sumcheck is one
+# launch.  0 runs every round one at a time (the plain per-round path).
+FUSE_MAX = 1 << 32
 
 
 def lead_rounds(n: int, count: int) -> int:
@@ -180,6 +183,14 @@ _PK_WHIR_SEGMENT = K.Entry("pk_whir_segment")
 _PK_SPARTAN_SEGMENT = K.Entry("pk_spartan_segment")
 
 
+def _partials(dev) -> torch.Tensor:
+    """The segment kernels' cross-block round sums: two slots of three
+    8-limb values for each of the grid's most blocks (the kernels'
+    ``seg::MAX_BLOCKS``)."""
+    blocks = K.lib()["pk_segment_max_blocks"]()
+    return torch.empty(2 * blocks * 3 * 8, dtype=V.I32, device=dev)
+
+
 def _log2_rounds(name: str, x: torch.Tensor, polys: int, rounds: int) -> int:
     n = x.shape[2] if x.dim() == 3 else 0
     if x.dim() != 3 or x.shape[1] != polys or n & (n - 1) or n == 0:
@@ -208,9 +219,11 @@ def whir_sumcheck_segment(fw: torch.Tensor, state: torch.Tensor, count: int):
     folded = torch.empty((16, 2, n >> count), dtype=V.I32, device=dev)
     scratch = torch.empty(16 * 2 * (n // 2 + n // 4) if count >= 2 else 0,
                           dtype=V.I32, device=dev)
+    partials = _partials(dev)
     _PK_WHIR_SEGMENT(dev, fw.data_ptr(), *fw.stride(), state.data_ptr(),
                      *state.stride(), n, count, scratch.data_ptr(),
-                     folded.data_ptr(), out.data_ptr(), out.stride(0))
+                     folded.data_ptr(), out.data_ptr(), out.stride(0),
+                     partials.data_ptr())
     whir_sumcheck_segment.launches += 1
     whir_sumcheck_segment.permutations += 3 * count
     return (folded if count else fw, out[:, :2],
@@ -252,9 +265,11 @@ def spartan_sumcheck_fused(abce: torch.Tensor, state: torch.Tensor,
     out = torch.empty((16, 2 + 5 * m_0), dtype=V.I32, device=dev)
     scratch = torch.empty(16 * 4 * (n // 2) if m_0 >= 2 else 0,
                           dtype=V.I32, device=dev)
+    partials = _partials(dev)
     _PK_SPARTAN_SEGMENT(dev, abce.data_ptr(), *abce.stride(),
                         scal.data_ptr(), scal.stride(0), n, m_0,
-                        scratch.data_ptr(), out.data_ptr(), out.stride(0))
+                        scratch.data_ptr(), out.data_ptr(), out.stride(0),
+                        partials.data_ptr())
     spartan_sumcheck_fused.launches += 1
     spartan_sumcheck_fused.permutations += 4 * m_0
     return (out[:, :2], out[:, 2:2 + 4 * m_0].view(16, m_0, 4),

@@ -164,15 +164,19 @@ def test_budget_line():
 
 def test_segment_shapes_of_the_main_paths(monkeypatch):
     """poseidon2 x1000 (m = 20, m_0 = 19) and sha256 x100 (m = 24,
-    m_0 = 22) launch the same segments: the Spartan tail of 14 rounds on
-    2^14, the blinding polynomial's two WHIR calls and the witness's four
-    past their leading rounds; none with every round one at a time."""
-    want = [("spartan_segment", 1 << 14, 14),
-            ("whir_segment", 256, 4), ("whir_segment", 16, 4),
-            ("whir_segment", 1 << 14, 2), ("whir_segment", 4096, 4),
+    m_0 = 22): every sumcheck is one segment launch over all of its rounds,
+    none with a leading round one at a time: Spartan's whole sumcheck, the
+    blinding polynomial's two WHIR calls, then the witness's five or six
+    (its opening's first call on 2^20 or 2^24 elements included)."""
+    whir = [("whir_segment", 256, 4), ("whir_segment", 16, 4)]
+    tail = [("whir_segment", 1 << 16, 4), ("whir_segment", 4096, 4),
             ("whir_segment", 256, 4), ("whir_segment", 16, 4)]
-    assert C.segment_shapes(C.scheme_for(515_003, 515_005)) == want
-    assert C.segment_shapes(C.scheme_for(3_138_745, 4_630_312)) == want
+    assert C.segment_shapes(C.scheme_for(515_003, 515_005)) == [
+        ("spartan_segment", 1 << 19, 19), *whir,
+        ("whir_segment", 1 << 20, 4), *tail]
+    assert C.segment_shapes(C.scheme_for(3_138_745, 4_630_312)) == [
+        ("spartan_segment", 1 << 22, 22), *whir,
+        ("whir_segment", 1 << 24, 4), ("whir_segment", 1 << 20, 4), *tail]
     from provekit_tpu_torch.ops import fused
     monkeypatch.setattr(fused, "FUSE_MAX", 0)
     assert C.segment_shapes(C.scheme_for(515_003, 515_005)) == []
@@ -218,20 +222,79 @@ def test_segment_work():
 
 def test_path_segment_shapes_cover_the_four_paths():
     """Phase 3 runs the segments at the shapes of all four paths: the
-    passport (m = 23) and the mul_chain inner prove (m_0 = 1) launch shapes
-    that poseidon2 x1000 and sha256 x100 never do."""
+    passport (m = 23, m_0 = 21) and the mul_chain inner prove (m_0 = 1)
+    launch shapes that poseidon2 x1000 and sha256 x100 never do; every call
+    takes all the rounds of its sumcheck."""
+    from provekit_tpu_torch.ops import fused
     paths = C.path_segment_shapes()
     assert set(paths) == {"poseidon2_x1000", "sha256_x100", "passport_cli",
                           "recursion_cli"}
     assert paths["passport_cli"] == [
-        ("spartan_segment", 1 << 14, 14),
+        ("spartan_segment", 1 << 21, 21),
         ("whir_segment", 256, 4), ("whir_segment", 16, 4),
-        ("whir_segment", 1 << 14, 3), ("whir_segment", 2048, 4),
+        ("whir_segment", 1 << 23, 4), ("whir_segment", 1 << 19, 4),
+        ("whir_segment", 1 << 15, 4), ("whir_segment", 2048, 4),
         ("whir_segment", 128, 4), ("whir_segment", 8, 3)]
     assert paths["recursion_cli"] == [("spartan_segment", 2, 1),
                                       ("whir_segment", 8, 3),
                                       ("whir_segment", 16, 4)]
-    assert paths["sha256_x100"] == paths["poseidon2_x1000"]
+    for calls in paths.values():
+        assert all(fused.lead_rounds(n, r) == 0 for _, n, r in calls)
+        assert max(n for _, n, _ in calls) <= fused.FUSE_MAX
+    assert [c for c in paths["sha256_x100"] if c[1] <= 1 << 20] == \
+        paths["poseidon2_x1000"][1:]
+
+
+def test_segment_per_round_is_the_plain_version(monkeypatch):
+    """Phase 3's reference above 2^20 elements, the per-round loop on the
+    operands' device, gives the segment wrappers' outputs (here on the CPU,
+    against the plain versions) and runs no kernel wrapper: mont_mul and
+    the duplex are replaced by their plain versions while it runs, and put
+    back after."""
+    import numpy as np
+    import torch
+
+    from provekit_tpu_torch.fields import vector as V
+    from provekit_tpu_torch.hash import skyscraper as S
+    from provekit_tpu_torch.ops import fused
+
+    def no_kernel(*args):
+        raise AssertionError("a kernel wrapper ran in the reference")
+
+    no_kernel.launches = 0
+    rng = np.random.default_rng(5)
+    cpu = torch.device("cpu")
+    for kind, plain in (("whir_segment", fused.whir_sumcheck_segment_plain),
+                        ("spartan_segment",
+                         fused.spartan_sumcheck_fused_plain)):
+        args = C.segment_args(torch, rng, cpu, kind, 16, 3, False)
+        want = plain(*args)
+        with monkeypatch.context() as m:
+            m.setattr(V, "mont_mul", no_kernel)
+            m.setattr(S, "duplex_v", no_kernel)
+            got = C.segment_per_round(kind, args)
+            assert V.mont_mul is no_kernel and S.duplex_v is no_kernel
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+def test_segment_spills_are_read_from_ptxas():
+    report = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119whir_segment_kernelE5Polys' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119whir_segment_kernelE5Polys
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 800 bytes smem
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122spartan_segment_kernelE5Polys
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+"""
+    assert C.ptxas_spills(report) == {
+        "_ZN12_GLOBAL__N_119whir_segment_kernelE5Polys": (0, 0),
+        "_ZN12_GLOBAL__N_122spartan_segment_kernelE5Polys": (12, 16)}
+    with pytest.raises(SystemExit):
+        C.check_segment_spills(report)
+    C.check_segment_spills(report.replace("12 bytes spill stores, 16",
+                                          "0 bytes spill stores, 0"))
+    with pytest.raises(SystemExit):
+        C.check_segment_spills(report.split("ptxas info    : Function "
+                                            "properties for _ZN12_GLOBAL__N_122")[0])
 
 
 def test_check_segments_fails_on_other_shapes(capsys):

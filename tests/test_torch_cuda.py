@@ -203,7 +203,8 @@ def segment_planes(n: int, seed: int, edge: bool, device) -> torch.Tensor:
 
 @pytest.mark.parametrize("edge", [False, True])
 @pytest.mark.parametrize("n,count", [(8, 0), (8, 1), (8, 3), (1 << 10, 1),
-                                     (1 << 10, 10), (1 << 14, 2)])
+                                     (1 << 10, 10), (1 << 14, 2),
+                                     (1 << 17, 17), (1 << 20, 4)])
 def test_whir_segment_kernel(cuda, n, count, edge):
     from provekit_tpu_torch.ops import fused
     # fw as a strided view (element stride 2), the state as a block's view
@@ -224,7 +225,7 @@ def test_whir_segment_kernel(cuda, n, count, edge):
 
 @pytest.mark.parametrize("edge", [False, True])
 @pytest.mark.parametrize("m,lead", [(0, 0), (1, 0), (3, 1), (10, 0),
-                                    (14, 12)])
+                                    (14, 12), (17, 0), (18, 3)])
 def test_spartan_segment_kernel(cuda, m, lead, edge):
     from provekit_tpu_torch.ops import fused
     n = 1 << m
@@ -246,7 +247,7 @@ def test_spartan_segment_kernel(cuda, m, lead, edge):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("fuse_max", [0, 4, 1 << 14])
+@pytest.mark.parametrize("fuse_max", [0, 4, 1 << 14, 1 << 32])
 def test_tiny_digest_on_card_at_every_split(cuda, monkeypatch, fuse_max):
     from provekit_tpu_torch.ops import fused
     monkeypatch.setattr(fused, "FUSE_MAX", fuse_max)

@@ -67,4 +67,6 @@ def test_kernel_signatures_match_sources():
         for name, argtypes in sigs.items():
             m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)
             assert m, (src, name)
-            assert m.group(1).count(",") + 1 == len(argtypes), (src, name)
+            params = m.group(1).strip()
+            count = params.count(",") + 1 if params else 0
+            assert count == len(argtypes), (src, name)
