@@ -5,11 +5,14 @@
 
 Phases, one or more lines each:
   1. card and toolchain (nvidia-smi name, power limit and maximum SM clock,
-     torch, CUDA, nvcc);
+     torch, CUDA, nvcc, g++);
   2. build of the CUDA kernels from provekit_tpu_torch/csrc (one nvcc per
      source, in parallel), with its time and what ptxas reports of the
      Skyscraper and segment kernels (registers, spills); it fails if either
-     segment kernel spills;
+     segment kernel spills.  Beside them, g++ builds the port's two host
+     libraries from provekit_tpu_torch/native (native/build.py: the curve
+     engine, and the host library of the witness solve, the host sponge's
+     permutation, Merkle path and PoW checks), with their time;
   3. each kernel against its plain torch version on the card at the shapes
      its path gives it: exact equality, both times (CUDA events, median) and
      the kernel's bound.  The butterfly runs at the sha256 x100 path's shape
@@ -33,11 +36,16 @@ Phases, one or more lines each:
      the floor of the sponge's serial chain; at the one-block design's
      shapes (2^14, 14) and (2^14, 2); and at 0, 1 and all rounds on the
      edge values 0, 1 and P - 1; each path's prove is then held to launch
-     exactly those shapes;
+     exactly those shapes.  The host library's permutation and
+     compression are held exactly to the Python version and to K5 and K4
+     on the card, on every pair of the edge values and on seeded random
+     pairs, with the microseconds a call of each on the host;
   4. the tensor-core Montgomery experiment (experiments/mxu_mont.py);
   5. the tiny scheme on the card: pinned proof digest, verify, tamper;
   6. poseidon2 x1000 at security 128 through the port's entry points:
-     build, from_program, solve_witness, a warm-up prove (its segment
+     build, from_program, solve_witness (the native solve, the default;
+     then once more beside the plain Python solve, use_native=False, whose
+     witness must be equal, both timed), a warm-up prove (its segment
      launches held to the shapes phase 3 ran for this path), a timed prove (its five
      spans, each kernel's launch count, the sponge's permutations, the peak
      device memory and the pinned proof digest), one more prove under
@@ -46,10 +54,13 @@ Phases, one or more lines each:
      table goes to chiprun_out/chip_smoke_profile_poseidon.txt), then a
      warm-up, a timed and a profiled prove with FUSE_MAX = 0 (every
      sumcheck round one at a time, no segment;
-     chip_smoke_profile_poseidon_unfused.txt), verify, and a
-     flipped byte rejected;
+     chip_smoke_profile_poseidon_unfused.txt), verify (the host sponge,
+     Merkle path and PoW checks in the host library), verify once more with
+     the plain Python hash swapped in (plain_host_hash; both must accept,
+     both timed), and a flipped byte rejected;
   7. sha256 x100 (RS domain 2^25) at security 128, the same stages but the
-     FUSE_MAX = 0 proves, with a progress line per stage;
+     FUSE_MAX = 0 proves and the plain solve, with a progress line per
+     stage;
   8. the front door: each Noir fixture of tests/fixtures through the CLI
      (prepare; prove from a Prover.toml through the ACVM and Brillig VM,
      whose witness values are checked; verify), then the passport circuit
@@ -57,9 +68,12 @@ Phases, one or more lines each:
      constraints, RS domain 2^24) at security 128: its circuit and witness
      JSON, the CLI's prepare and prove --verify in this process (each CLI
      span, the launch counts and segment shapes around prove, the peak
-     device memory, the proof size), and the verify service as a child process on its scheme,
-     which must answer 200, 400, 400 and 404 (the proof, a flipped byte, a
-     malformed body, a wrong path);
+     device memory, the proof size, the native solve's time; then the
+     native and the plain solve of the same scheme and values, whose
+     witnesses must be equal, and its verify with the host library and with
+     the plain host hash, all timed), and the verify service as a
+     child process on its scheme, which must answer 200, 400, 400 and 404
+     (the proof, a flipped byte, a malformed body, a wrong path);
   9. the recursive-verifier path: (a) the gnark export at full width, the
      passport's .nps and .np of phase 8 through `cli generate-gnark-inputs`
      and poseidon2 x1000's scheme and proof of phase 6 through
@@ -289,8 +303,10 @@ def phase_toolchain(torch):
     nvcc = subprocess.run([K._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"[1] {card}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]} nvcc: {nvcc[-1]}")
+        f"python {sys.version.split()[0]} nvcc: {nvcc[-1]}; g++: {gxx}")
     log(f"[1] maximum SM clock {clock} MHz: 32-bit integer multiply-adds at "
         f"{rates['int32_muladd'] / 1e12:.3f} T/s")
     return card, rates
@@ -326,14 +342,39 @@ def check_segment_spills(report: str) -> None:
     log("[2] sumcheck_segment.cu: neither segment kernel spills")
 
 
+def build_host_libraries(out: dict) -> None:
+    """Build the port's host libraries with g++ (native/build.py), one
+    after the other; ``out`` gets each one's path and seconds, or the
+    error."""
+    from provekit_tpu_torch.native import build as NB
+    try:
+        for lib in NB.LIBRARIES:
+            t0 = time.perf_counter()
+            path = NB.make(lib)
+            out[lib.name] = (path.name, time.perf_counter() - t0)
+    except RuntimeError as exc:
+        out["error"] = str(exc)
+
+
 def phase_build():
+    import threading
+
     from provekit_tpu_torch import kernels as K
+    host = {}
+    gxx = threading.Thread(target=build_host_libraries, args=(host,))
     t0 = time.perf_counter()
+    gxx.start()
     # the segments are compiled in any case: their spills are checked
     reports = K.build(force=("sumcheck_segment.cu",))
     K.lib()
     log(f"[2] {len(K.SIGNATURES)} kernel libraries built in "
         f"{time.perf_counter() - t0:.3f} s")
+    gxx.join()
+    if "error" in host:
+        fail(f"the host libraries did not build: {host['error']}")
+    log("[2] host libraries built with g++ beside them: "
+        + ", ".join(f"{name} ({path}) in {sec:.3f} s"
+                    for name, (path, sec) in host.items()))
     for src in ("skyscraper.cu", "sumcheck_segment.cu"):
         for line in reports.get(src, "").splitlines():
             if "ptxas info" in line or "spill" in line:
@@ -434,6 +475,7 @@ def phase_kernels(torch, dev, rates):
         f"{rows.rows['mont_mul']['ms']:.4f} ms")
 
     phase_skyscraper(torch, rows, dev, a, b)
+    phase_host_hash(torch, dev)
     segments = phase_segments(torch, rng, rows, dev)
     phase_poseidon_leaves(torch, rng, rows, dev)
     del a, b, coeffs
@@ -612,6 +654,62 @@ def phase_skyscraper(torch, rows, dev, a, b):
     log(f"[3] serial chain of {calls} permutations, host wall clock per "
         f"permutation: permute calls {chain_ms / calls:.4f} ms, one duplex "
         f"squeeze {squeeze_ms / calls:.4f} ms")
+
+
+def host_hash_pairs(seed: int, count: int) -> list:
+    """(l, r) canonical pairs for the host library's hash: every pair of
+    the edge values (``skyscraper.edge_values``), then ``count`` pairs drawn
+    from ``seed``."""
+    import numpy as np
+
+    from provekit_tpu_torch.fields import bn254 as F
+    from provekit_tpu_torch.hash import skyscraper as S
+    edge = S.edge_values(seed)
+    pairs = [(l, r) for l in edge for r in edge]
+    rng = np.random.default_rng(seed)
+    draw = [int.from_bytes(rng.bytes(32), "little") % F.P
+            for _ in range(2 * count)]
+    return pairs + list(zip(draw[0::2], draw[1::2]))
+
+
+def per_call_us(fn, pairs) -> tuple[list, float]:
+    """(results, host microseconds a call) of ``fn(l, r)`` over ``pairs``."""
+    t0 = time.perf_counter()
+    out = [fn(l, r) for l, r in pairs]
+    return out, (time.perf_counter() - t0) / len(pairs) * 1e6
+
+
+def phase_host_hash(torch, dev):
+    """The host library's permute and compress (native/solver.cpp) against
+    the Python version (hash/skyscraper.py) and against K5 and K4 on the
+    card, exactly, on :func:`host_hash_pairs`; the host's microseconds a
+    call of each."""
+    from provekit_tpu_torch import native
+    from provekit_tpu_torch.fields import vector as V
+    from provekit_tpu_torch.hash import skyscraper as S
+
+    pairs = host_hash_pairs(SEED, 1000)
+    perm, perm_us = per_call_us(native.permute, pairs)
+    comp, comp_us = per_call_us(native.compress, pairs)
+    plain_perm, plain_perm_us = per_call_us(S.permute, pairs)
+    plain_comp, plain_comp_us = per_call_us(S.compress, pairs)
+    ls = V.pack([l for l, _ in pairs], dev)
+    rs = V.pack([r for _, r in pairs], dev)
+    kl, kr = S.permute_v(ls, rs)
+    k5 = list(zip(V.unpack(kl), V.unpack(kr)))
+    k4 = V.unpack(S.compress_v(ls, rs))
+    for name, got, want in (("permute", perm, plain_perm),
+                            ("permute (K5)", perm, k5),
+                            ("compress", comp, plain_comp),
+                            ("compress (K4)", comp, k4)):
+        bad = [i for i, (x, y) in enumerate(zip(got, want)) if x != y]
+        if bad or len(got) != len(want):
+            fail(f"host library {name} disagrees on pairs {bad[:5]}")
+    log(f"[3] host library permute and compress equal the Python version "
+        f"and K5 and K4 on {len(pairs)} pairs ({len(pairs) - 1000} of edge "
+        f"values); host us a call: permute {perm_us:.2f} (Python "
+        f"{plain_perm_us:.2f}), compress {comp_us:.2f} (Python "
+        f"{plain_comp_us:.2f})")
 
 
 def segment_args(torch, rng, dev, kind: str, n: int, rounds: int,
@@ -1149,7 +1247,8 @@ def recorded_segments():
 
 
 def prove_path(torch, dev, tag, name, build, counters, expect, segments,
-               digest, profile_to, unfused_profile_to=None):
+               digest, profile_to, unfused_profile_to=None,
+               plain_solve=False):
     """One circuit through the port's entry points: build, from_program,
     solve_witness, a warm-up prove (its segment launches must be
     ``segments``, the shapes phase 3 ran for this path), a timed prove with
@@ -1158,7 +1257,10 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
     (:func:`profile_prove`), verify and a flipped byte.  With
     ``unfused_profile_to``, then a warm-up, a timed and a profiled prove
     with FUSE_MAX = 0 (every sumcheck round one at a time, no segment).
-    Returns the launch counts."""
+    Each verify runs twice: with the host library, then with the plain
+    host hash (:func:`plain_host_hash`).  With ``plain_solve``, the plain
+    solve runs beside the native one (:func:`compare_solves`).  Returns the
+    launch counts."""
     from provekit_tpu_torch.compiler import NoirProofScheme
     from provekit_tpu_torch.ops import fused as fused_ops
     from provekit_tpu_torch.utils import profiling
@@ -1184,6 +1286,10 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
     rng = random.Random(1)
     witness = stage("solve_witness",
                     lambda: scheme.solve_witness(acir_values, rng=rng))
+    if plain_solve:
+        native_s, plain_s = compare_solves(scheme, acir_values)
+        log(f"{tag} {name}: native and plain solves equal, "
+            f"{native_s:.3f} s against {plain_s:.3f} s")
 
     def prove():
         proof = whir.prove(r1cs, witness, rng=rng)
@@ -1234,6 +1340,8 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
             f"kernels, busy {fused['busy_s']:.3f} / {unfused['busy_s']:.3f}"
             f" s of {fused['wall_s']:.3f} / {unfused['wall_s']:.3f} s")
     stage("verify", lambda: whir.verify(r1cs, proof))
+    with plain_host_hash():
+        stage("verify_plain_host_hash", lambda: whir.verify(r1cs, proof))
     expect_rejected(whir, r1cs, proof, [len(proof) // 2])
     log(f"{tag} {name}: verify ok, flipped byte rejected; stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
@@ -1241,6 +1349,68 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
     if missing:
         fail(f"kernels not launched by the {name} path: {missing}")
     return launches, (whir, r1cs, proof)
+
+
+def compare_solves(scheme, acir_values) -> tuple[float, float]:
+    """Solve the witness natively (the default) and with the plain Python
+    solve (``use_native=False``), both under ``random.Random(1)``; fail
+    unless the two witness lists are equal.  Returns both times (s)."""
+    times, witnesses = [], []
+    for use_native in (True, False):
+        t0 = time.perf_counter()
+        witnesses.append(scheme.solve_witness(
+            acir_values, rng=random.Random(1), use_native=use_native))
+        times.append(time.perf_counter() - t0)
+    native_w, plain_w = witnesses
+    if native_w != plain_w:
+        bad = sum(x != y for x, y in zip(native_w, plain_w))
+        fail(f"the native and plain solves differ: {len(native_w)} and "
+             f"{len(plain_w)} witnesses, {bad} of the first unequal")
+    return times[0], times[1]
+
+
+@contextlib.contextmanager
+def recorded_solves():
+    """Record (scheme, acir_values, seconds) of every
+    ``NoirProofScheme.solve_witness`` call inside (the CLI's prove solves
+    through it)."""
+    from provekit_tpu_torch.compiler import NoirProofScheme
+    calls = []
+    solve = NoirProofScheme.solve_witness
+
+    def solve_rec(self, acir_values, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = solve(self, acir_values, *args, **kwargs)
+        calls.append((self, acir_values, time.perf_counter() - t0))
+        return out
+
+    NoirProofScheme.solve_witness = solve_rec
+    try:
+        yield calls
+    finally:
+        NoirProofScheme.solve_witness = solve
+
+
+@contextlib.contextmanager
+def plain_host_hash():
+    """Inside, the host sponge, Merkle path checks and PoW checks run the
+    plain Python hash (``hash/skyscraper.py``, ``merkle.verify_path_plain``)
+    instead of the host library, as phase 3 swaps plain versions in for
+    kernels."""
+    from provekit_tpu_torch import native
+    from provekit_tpu_torch.hash import skyscraper as S
+    from provekit_tpu_torch.ops import merkle
+
+    def merkle_verify(leaf_values, path, index, root):
+        return merkle.verify_path_plain(root, leaf_values, index, path)
+
+    saved = native.permute, native.compress, native.merkle_verify
+    native.permute, native.compress = S.permute, S.compress
+    native.merkle_verify = merkle_verify
+    try:
+        yield
+    finally:
+        native.permute, native.compress, native.merkle_verify = saved
 
 
 # the passport circuit of passport_test_vector(seed=1) with its signature
@@ -1393,7 +1563,7 @@ def phase_front_door(torch, dev, counters, segments, out_dir):
     try:
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts(counters)
-        with recorded_segments() as calls:
+        with recorded_segments() as calls, recorded_solves() as solves:
             cli_step("passport", ["prove", str(nps), str(witness), "-o",
                                   str(np_), "--verify"], "passport_prove")
         launches = read_counts(counters)
@@ -1408,14 +1578,31 @@ def phase_front_door(torch, dev, counters, segments, out_dir):
             f"{launches['butterfly'] > 0}; peak device memory "
             f"{peak_gib:.3f} GiB")
 
+        if len(solves) != 1:
+            fail(f"passport: the CLI prove solved {len(solves)} times")
+        scheme, acir_values, solve_s = solves.pop()
+        native_s, plain_s = compare_solves(scheme, acir_values)
+        verify_s = []
+        for hashing in (contextlib.nullcontext, plain_host_hash):
+            t0 = time.perf_counter()
+            with hashing():
+                scheme.verify(files.read(np_))
+            verify_s.append(time.perf_counter() - t0)
+        del scheme, acir_values
+        log(f"[8] passport: the CLI prove's native solve {solve_s:.3f} s; "
+            f"native and plain solves equal, {native_s:.3f} s against "
+            f"{plain_s:.3f} s; verify (with the .np read) {verify_s[0]:.3f} "
+            f"s, with the plain host hash {verify_s[1]:.3f} s")
+
         wait_for_banner(server, work / "server_log.txt", 900)
         log(f"[8] verify service up on port {port}, "
             f"{time.perf_counter() - t_server:.3f} s after its start")
-        for path, data, code in verify_requests(proof):
+        for i, (path, data, code) in enumerate(verify_requests(proof)):
             t0 = time.perf_counter()
             got = post(port, path, data)
             log(f"[8] POST {path} ({len(data)} bytes): {got} in "
-                f"{time.perf_counter() - t0:.3f} s (expected {code})")
+                f"{time.perf_counter() - t0:.3f} s (expected {code}"
+                + ("; the service's first verify)" if i == 0 else ")"))
             if got != code:
                 fail(f"verify service answered {got} for {path}, "
                      f"expected {code}")
@@ -1550,12 +1737,9 @@ def phase_recursion(counters, segments, work) -> dict:
     flipped byte.  Returns the inner prove's launch counts."""
     from pathlib import Path
 
-    from provekit_tpu_torch.native import curve
+    from provekit_tpu_torch.native import build as NB
     root = Path(__file__).resolve().parent
-    t0 = time.perf_counter()
-    lib = curve.build()
-    log(f"[9] curve engine {lib.name} built with g++ in "
-        f"{time.perf_counter() - t0:.3f} s")
+    log(f"[9] curve engine {NB.make(NB.CURVE).name} (built in phase 2)")
     inputs, _ = fixture_cases()["mul_chain"]
     toml = work / "mul_chain.Prover.toml"
     toml.write_text(prover_toml(inputs))
@@ -1637,7 +1821,7 @@ def main() -> int:
         lambda: poseidon.hash_chain_circuit(1000), counters, ON_PATH,
         segments["poseidon2_x1000"], POSEIDON_DIGEST,
         out_dir / "chip_smoke_profile_poseidon.txt",
-        out_dir / "chip_smoke_profile_poseidon_unfused.txt")
+        out_dir / "chip_smoke_profile_poseidon_unfused.txt", plain_solve=True)
     by_path["sha256_x100"], _ = prove_path(
         torch, dev, "[7]", "sha256 x100",
         lambda: sha256.chain_circuit(100), counters,

@@ -6,8 +6,10 @@ Port of ``provekit_tpu/compiler/scheme.py`` (reference
 ("📜") absorbs the circuit shape and public inputs and supplies the
 challenges drawn during witness solving; the main proof then runs the
 WhirR1CSScheme over the solved witness on the scheme's device (the card
-unless the caller passes ``device="cpu"``).  The witness solve is the Python
-``witness_builder.solve`` on the host.
+unless the caller passes ``device="cpu"``).  The witness solve runs on the
+host in the port's native library (``native.solve_witness`` over
+``native/encode.py``); ``use_native=False`` runs the Python
+``witness_builder.solve``, its plain version.
 """
 
 from __future__ import annotations
@@ -15,9 +17,11 @@ from __future__ import annotations
 import secrets
 from dataclasses import dataclass
 
+from .. import native
 from ..acir import model as acir
 from ..fields import bn254 as F
 from ..fs import DomainSeparator
+from ..native.encode import encode_program
 from ..protocol import WhirR1CSScheme
 from ..r1cs import R1CS
 from ..r1cs import witness_builder as wb
@@ -68,21 +72,35 @@ class NoirProofScheme:
             ds.squeeze(1, "logup_challenge")
         return ds
 
+    def _witness_seed_scalars(self, acir_values: dict[int, int]) -> list[int]:
+        """What the witness sponge absorbs before the solve: the shape,
+        then the public inputs."""
+        seeds = [self.r1cs.num_constraints % F.P,
+                 self.r1cs.num_witnesses % F.P]
+        seeds += [acir_values[i] % F.P for i in self.circuit.public_inputs()]
+        return seeds
+
     def _seed_witness_sponge(self, tr, acir_values: dict[int, int]) -> None:
-        tr.add_scalars([self.r1cs.num_constraints % F.P,
-                        self.r1cs.num_witnesses % F.P])
-        pub = self.circuit.public_inputs()
-        if pub:
-            tr.add_scalars([acir_values[i] % F.P for i in pub])
+        seeds = self._witness_seed_scalars(acir_values)
+        tr.add_scalars(seeds[:2])
+        if seeds[2:]:
+            tr.add_scalars(seeds[2:])
 
     # -- solve / prove / verify -------------------------------------------
 
-    def solve_witness(self, acir_values: dict[int, int],
-                      rng=None) -> list[int]:
-        tr = self.create_witness_io_pattern().to_prover_state()
-        self._seed_witness_sponge(tr, acir_values)
-        partial = wb.solve(self.witness_builders, acir_values,
-                           self.r1cs.num_witnesses, tr)
+    def solve_witness(self, acir_values: dict[int, int], rng=None,
+                      use_native: bool = True) -> list[int]:
+        ds = self.create_witness_io_pattern()
+        if use_native:
+            partial = native.solve_witness(
+                encode_program(self.witness_builders), acir_values,
+                self.r1cs.num_witnesses, ds.iv(),
+                self._witness_seed_scalars(acir_values))
+        else:
+            tr = ds.to_prover_state()
+            self._seed_witness_sponge(tr, acir_values)
+            partial = wb.solve(self.witness_builders, acir_values,
+                               self.r1cs.num_witnesses, tr)
         rng = rng if rng is not None else secrets.SystemRandom()
         return wb.fill_witness(partial, rng)
 

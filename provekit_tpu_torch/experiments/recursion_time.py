@@ -81,7 +81,7 @@ def main(argv=None) -> int:
     from provekit_tpu_torch.circuits import passport, poseidon
     from provekit_tpu_torch.compiler import NoirProofScheme
     from provekit_tpu_torch.io import files
-    from provekit_tpu_torch.native import curve
+    from provekit_tpu_torch.native import build as NB
     from provekit_tpu_torch.recursion import groth16, wrap
 
     dev = files.require_device(args.device)
@@ -111,7 +111,7 @@ def main(argv=None) -> int:
 
     if dev.type == "cuda":
         stage("kernel_build", K.build)
-    stage("curve_engine_build", curve.build)
+    stage("curve_engine_build", lambda: NB.make(NB.CURVE))
     if args.circuit == "poseidon":
         program, values, _ = poseidon.hash_chain_circuit(args.hashes)
     else:

@@ -1,15 +1,17 @@
-"""Time the Python witness solve with two field inversions, in turns.
+"""Time the native witness solve against the plain Python solve, in turns.
 
     python3 provekit_tpu_torch/experiments/solve_time.py [--blocks N] [--rounds R]
 
 Builds the sha256 chain of ``--blocks`` blocks, compiles it for the CPU (the
 solve runs on the host either way), then solves its witness ``2 * R``
-times under ``random.Random(5)``: with ``fields.bn254.inv`` as
-``pow(a, P - 2, P)`` (what the port computed before) and as
-``pow(a, -1, P)`` (what it computes now), in the order old, new, new, old,
-...  Every solve must give the same witness.  It prints one JSON line: the
-circuit's sizes, the count of inverse builders, and the seconds of each
-solve by kind.  It needs no card.
+times under ``random.Random(5)``: with the port's native library (the
+default of ``solve_witness``) and with the Python ``witness_builder.solve``
+(``use_native=False``), in the order native, plain, plain, native, ...
+Every solve must give the same witness.  It also times the program's
+encoding alone (``native/encode.py``), which each native solve includes.
+It prints one JSON line: the circuit's sizes, the count of inverse
+builders, the encoding's seconds and the seconds of each solve by kind.
+It needs no card.
 """
 
 from __future__ import annotations
@@ -26,41 +28,39 @@ from pathlib import Path
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--blocks", type=int, default=20)
-    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
     from provekit_tpu_torch.circuits import sha256
     from provekit_tpu_torch.compiler import NoirProofScheme
-    from provekit_tpu_torch.fields import bn254 as F
+    from provekit_tpu_torch.native.encode import encode_program
 
     program, values, _ = sha256.chain_circuit(args.blocks)
     scheme = NoirProofScheme.from_program(program, device="cpu")
     kinds = collections.Counter(type(b).__name__
                                 for b in scheme.witness_builders)
-    new_inv = F.inv
+    t0 = time.perf_counter()
+    encode_program(scheme.witness_builders)
+    encode_s = time.perf_counter() - t0
 
-    def old_inv(a: int) -> int:
-        if a == 0:
-            raise ZeroDivisionError("inverse of zero in Fr")
-        return pow(a, F.P - 2, F.P)
-
-    times = {"old": [], "new": []}
+    times = {"native": [], "plain": []}
     witness = None
-    for kind in ["old", "new", "new", "old"] * args.rounds:
-        F.inv = old_inv if kind == "old" else new_inv
+    for kind in ["native", "plain", "plain", "native"] * args.rounds:
         t0 = time.perf_counter()
-        got = scheme.solve_witness(values, rng=random.Random(5))
+        got = scheme.solve_witness(values, rng=random.Random(5),
+                                   use_native=kind == "native")
         times[kind].append(time.perf_counter() - t0)
         if witness is not None and got != witness:
-            raise SystemExit("the two inversions solved different witnesses")
+            raise SystemExit("the native and plain solves differ")
         witness = got
-    F.inv = new_inv
     print(json.dumps({
         "blocks": args.blocks,
         "constraints": scheme.r1cs.num_constraints,
         "witnesses": scheme.r1cs.num_witnesses,
+        "builders": len(scheme.witness_builders),
         "inverse_builders": kinds["Inverse"],
+        "encode_s": encode_s,
         "solve_s": times}))
     return 0
 

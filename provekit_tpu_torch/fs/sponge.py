@@ -3,9 +3,11 @@
 The reference wires ``skyscraper::reference::permute`` into spongefish's
 ``DuplexSponge`` with field-element units, state width N=2, rate R=1
 (``provekit/common/src/skyscraper/sponge.rs:42-60``).  The Fiat-Shamir sponge
-is inherently sequential and tiny; this host version (Python ints) serves the
-verifier and the witness solve, while the prover advances the same sponge on
-the device (``fs.device``).
+is inherently sequential and tiny; this host version (Python ints, each
+permutation in the port's native library, ``native.permute``) serves the
+verifier and the Python witness solve, while the prover advances the same
+sponge on the device (``fs.device``).  ``hash.skyscraper.permute`` is the
+permutation's plain version.
 
 Duplex semantics (spongefish ``DuplexSponge``):
 * ``new(iv)``: state = [0, iv mod p]  (rate element is index 0)
@@ -16,8 +18,8 @@ Duplex semantics (spongefish ``DuplexSponge``):
 
 from __future__ import annotations
 
+from .. import native
 from ..fields import bn254 as F
-from ..hash import skyscraper
 
 RATE = 1
 WIDTH = 2
@@ -33,7 +35,7 @@ class SkyscraperSponge:
         self.squeeze_pos = RATE
 
     def _permute(self) -> None:
-        self.state = list(skyscraper.permute(self.state[0], self.state[1]))
+        self.state = list(native.permute(self.state[0], self.state[1]))
 
     def absorb(self, units) -> None:
         for u in units:

@@ -3,12 +3,9 @@
 Port of the JAX package's binding of the same name: BN254 G1/G2 fixed-base
 batches, Pippenger MSMs and the radix-2 Fr NTT, the host work of the
 Groth16 wrap (``recursion/groth16.py``). The library builds from this
-package's own copy of ``curve.cpp`` at first use, with ``g++``, into
-``build/provekit_tpu_torch/`` at the root of the checkout, as
-``kernels.py`` builds the CUDA kernels. Its file name carries a hash of the
-source, the flags and the host's name, since ``-march=native`` builds for
-the CPU it runs on. There is no fallback: a library that cannot be built or
-loaded raises, and says why.
+package's own copy of ``curve.cpp`` at first use (``native/build.py``: with
+``g++``, into ``build/provekit_tpu_torch/``). There is no fallback: a
+library that cannot be built or loaded raises, and says why.
 
 Marshalling: points travel as canonical little-endian affine bytes
 (G1 = x||y, 64 B; G2 = x.c0||x.c1||y.c0||y.c1, 128 B; infinity = zeros),
@@ -19,19 +16,9 @@ G2 = ((c0, c1), (c0, c1)), None = infinity).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import platform
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "curve.cpp"
-BUILD_DIR = (Path(__file__).resolve().parent.parent.parent / "build"
-             / "provekit_tpu_torch")
-CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared"]
-LINK_FLAGS = ["-lpthread"]
+from . import build as NB
 
 _R = 21888242871839275222246405745257275088548364400416034343698204186575808495617
 
@@ -39,39 +26,12 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
-    h.update(platform.node().encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libpkcurve_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile ``curve.cpp`` unless the library is up to date; returns its
-    path.  Raises with the compiler's output when the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the curve engine cannot be built")
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE),
-                           *LINK_FLAGS], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 def load():
     """The loaded library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(NB.make(NB.CURVE)))
             for name in ("pk_g1_mul_base_batch", "pk_g2_mul_base_batch",
                          "pk_g1_msm", "pk_g2_msm"):
                 fn = getattr(lib, name)

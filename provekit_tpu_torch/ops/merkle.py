@@ -4,7 +4,9 @@ Port of ``provekit_tpu/ops/merkle.py``: leaf digest = left fold of the 2-to-1
 compression over the leaf's field elements, inner node = compress(l, r),
 digests are field elements in canonical form.  The leaf digests are one
 ``compress_fold_v`` launch, every inner level one batched ``compress_v``
-launch (the CUDA kernels on the card), all levels on the device.
+launch (the CUDA kernels on the card), all levels on the device.  The
+verifier's path check runs in the port's native library
+(``native.merkle_verify``); ``verify_path_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import native
 from ..fields import vector as V
 from ..hash import skyscraper as S
 
@@ -80,6 +83,12 @@ def open_gather_dev(tree: MerkleTree, indices: torch.Tensor) -> torch.Tensor:
 def verify_path(root: int, leaf_values: list[int], index: int,
                 path: list[int]) -> bool:
     """Host-side path check: hash leaf values, then climb with siblings."""
+    return native.merkle_verify(leaf_values, path, index, root)
+
+
+def verify_path_plain(root: int, leaf_values: list[int], index: int,
+                      path: list[int]) -> bool:
+    """:func:`verify_path` in Python, over ``hash.skyscraper.compress``."""
     h = leaf_values[0]
     for v in leaf_values[1:]:
         h = S.compress(h, v)

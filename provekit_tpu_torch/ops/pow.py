@@ -3,7 +3,9 @@
 Port of ``provekit_tpu/ops/pow.py``: the condition is
 ``compress(challenge, nonce) < threshold`` with ``threshold ~ 2^-bits * p``
 computed through the reference's f64 path, the prover grinding at the
-biased threshold ``threshold(bits + PROVER_BIAS)``.  The solver scans blocks
+biased threshold ``threshold(bits + PROVER_BIAS)``.  The verifier's check and
+the sequential host solver run the compression in the port's native library
+(``native.compress``).  The device solver scans blocks
 of ``_block_size(bits)`` nonces, one batched compress per block, and returns
 the SMALLEST satisfying nonce of the first block that has one (a minimum
 over the block, never the first hit a racing thread finds), so the
@@ -16,6 +18,7 @@ import struct
 
 import torch
 
+from .. import native
 from ..fields import bn254 as F
 from ..fields import vector as V
 from ..hash import skyscraper as S
@@ -57,7 +60,20 @@ def threshold(difficulty: float) -> int:
 def verify(challenge: int, difficulty: float, nonce: int) -> bool:
     if difficulty == 0.0:
         return True
-    return S.compress(challenge, nonce) < threshold(difficulty)
+    return native.compress(challenge, nonce) < threshold(difficulty)
+
+
+def solve_host_sequential(challenge: int, difficulty: float) -> int:
+    """The first satisfying nonce by a sequential scan on the host: the
+    device solver's nonce (the smallest in its first block with a hit), at
+    the same biased threshold."""
+    if difficulty == 0.0:
+        return 0
+    thresh = threshold(difficulty + PROVER_BIAS)
+    nonce = 0
+    while native.compress(challenge, nonce) >= thresh:
+        nonce += 1
+    return nonce
 
 
 def _block_size(difficulty: float) -> int:

@@ -1,4 +1,5 @@
-"""The smoke run's bound arithmetic (chip_smoke.py), pinned on the CPU.
+"""The smoke run's bound arithmetic and phase helpers (chip_smoke.py),
+pinned on the CPU.
 
 A kernel's bound is the larger of its bytes over the HBM rate and its
 operations over the card's peak: 32-bit integer multiply-adds at 132 SMs x
@@ -320,3 +321,86 @@ def test_recorded_segments_keep_the_launch_counts():
     assert (whir.launches, whir.permutations, spartan.launches) == (
         before[0] + 1, before[1] + 9, before[2] + 1)
     whir.launches, whir.permutations, spartan.launches = before
+
+
+# -- the host library's helpers (phases 3, 6 and 8) ---------------------------
+
+
+def test_host_hash_pairs_are_edge_and_seeded():
+    """Phase 3 holds the host library to K4 and K5 on every pair of the
+    edge values, then on seeded pairs."""
+    from provekit_tpu_torch.fields import bn254 as F
+    from provekit_tpu_torch.hash import skyscraper as S
+    pairs = C.host_hash_pairs(C.SEED, 10)
+    edge = S.edge_values(C.SEED)
+    assert pairs[:len(edge) ** 2] == [(l, r) for l in edge for r in edge]
+    assert len(pairs) == len(edge) ** 2 + 10
+    assert all(0 <= v < F.P for pair in pairs for v in pair)
+    assert pairs == C.host_hash_pairs(C.SEED, 10)
+
+
+def test_plain_host_hash_swaps_in_python(monkeypatch):
+    """Inside the swap-in the verifier runs with the host library
+    unloadable, and accepts and rejects as with it; after it, the library's
+    entry points are back."""
+    import random
+
+    from provekit_tpu_torch import native
+    from provekit_tpu_torch.hash import skyscraper as S
+    r1cs, witness = C.build_tiny_system(seed=3, n_mults=1)
+    scheme = C.tiny_scheme(r1cs, "cpu")
+    proof = scheme.prove(r1cs, witness, rng=random.Random(11))
+    saved = native.permute, native.compress, native.merkle_verify
+
+    def no_library():
+        raise AssertionError("the host library ran")
+
+    monkeypatch.setattr(native, "load", no_library)
+    with C.plain_host_hash():
+        assert native.permute is S.permute and native.compress is S.compress
+        scheme.verify(r1cs, proof)
+        C.expect_rejected(scheme, r1cs, proof, [len(proof) // 2])
+    assert (native.permute, native.compress, native.merkle_verify) == saved
+    with pytest.raises(AssertionError, match="host library"):
+        scheme.verify(r1cs, proof)
+
+
+def ram_scheme():
+    """tests/test_compiler.py's RAM gadget (Spice memory with its
+    challenges) on the port, on the CPU."""
+    from provekit_tpu_torch.acir import model as acir
+    from provekit_tpu_torch.compiler import NoirProofScheme
+    from tests.test_torch_compiler import ram
+    circuit, vals, _ = ram(acir)
+    return NoirProofScheme.from_program(
+        acir.Program(functions=[circuit]), security_level=30,
+        max_pow_bits=6, device="cpu"), vals
+
+
+def test_compare_solves_and_recorded_solves(monkeypatch):
+    """The recorder sees the solve a prove makes and puts the method back;
+    the comparison passes on equal witnesses and fails on one that
+    differs."""
+    import random
+
+    from provekit_tpu_torch import native
+    from provekit_tpu_torch.compiler import NoirProofScheme
+    scheme, vals = ram_scheme()
+    solve = NoirProofScheme.solve_witness
+    with C.recorded_solves() as solves:
+        witness = scheme.solve_witness(vals, rng=random.Random(3))
+    assert [(s, v) for s, v, _ in solves] == [(scheme, vals)]
+    assert NoirProofScheme.solve_witness is solve
+    assert witness == scheme.solve_witness(vals, rng=random.Random(3))
+    native_s, plain_s = C.compare_solves(scheme, vals)
+    assert native_s > 0 and plain_s > 0
+    real = native.solve_witness
+
+    def one_differs(*args):
+        w = real(*args)
+        w[-1] = (w[-1] or 0) + 1
+        return w
+
+    monkeypatch.setattr(native, "solve_witness", one_differs)
+    with pytest.raises(SystemExit):
+        C.compare_solves(scheme, vals)

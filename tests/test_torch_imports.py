@@ -27,7 +27,8 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 80
+    # 83 since native/build.py and native/encode.py
+    assert int(out.stdout.strip()) >= 83
 
 
 def test_port_sources_name_no_jax():
@@ -39,18 +40,19 @@ def test_port_sources_name_no_jax():
 
 
 def test_port_sources_name_no_jax_native_library():
-    """The port builds its own curve engine (``native/curve.cpp``) into
-    ``build/``: no source of it names the JAX package's library or native
-    directory."""
-    pat = re.compile(r"libpkcurve\.so|provekit_tpu/native|"
+    """The port builds its own host libraries (``native/curve.cpp`` and
+    ``native/solver.cpp`` over ``native/field256.hpp``) into ``build/``: no
+    source of it names the JAX package's libraries or native directory."""
+    pat = re.compile(r"libpkcurve\.so|libpknative\.so|provekit_tpu/native|"
                      r"parents?\W*(\[\d\]|(\.parent)+)\s*/\s*\"native\"")
     files = [*PORT.rglob("*.py"), *PORT.rglob("*.cpp"),
-             ROOT / "chip_smoke.py"]
+             *PORT.rglob("*.hpp"), ROOT / "chip_smoke.py"]
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders, offenders
     assert not pat.search('_DIR = Path(__file__).resolve().parent / "x"')
     assert pat.search('Path(__file__).resolve().parents[2] / "native"')
+    assert pat.search('_LIB_PATH = _NATIVE_DIR / "libpknative.so"')
     assert pat.search('Path(__file__).resolve().parent.parent.parent / '
                       '"native"')
 

@@ -30,6 +30,7 @@ from provekit_tpu.recursion.fq import Fq2 as JFq2
 from provekit_tpu.recursion.fq import Fq12 as JFq12
 from provekit_tpu_torch.fields import bn254 as F
 from provekit_tpu_torch.fields import vector as V
+from provekit_tpu_torch.native import build as NB
 from provekit_tpu_torch.native import curve as NC
 from provekit_tpu_torch.r1cs import R1CS
 from provekit_tpu_torch.recursion import fq, groth16, wrap
@@ -168,15 +169,16 @@ def test_engine_fr_ntt():
 
 def test_engine_has_no_fallback(tmp_path, monkeypatch):
     """A library that cannot be built raises, and says why; Groth16 raises
-    with it rather than running in Python."""
+    with it rather than running in Python.  (The curve engine builds
+    through the shared builder, ``native/build.py``.)"""
     monkeypatch.setattr(NC, "_lib", None)
-    monkeypatch.setattr(NC, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(NC.shutil, "which", lambda name: None)
+    monkeypatch.setattr(NB, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(NB.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         NC.g1_msm([g1_generator()], [1])
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         groth16.setup(tiny_r1cs(R1CS), rng=random.Random(1))
-    monkeypatch.setattr(NC.shutil, "which", lambda name: "/bin/false")
+    monkeypatch.setattr(NB.shutil, "which", lambda name: "/bin/false")
     with pytest.raises(RuntimeError, match="failed"):
         NC.load()
     assert not list(tmp_path.glob("*.so"))
