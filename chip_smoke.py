@@ -85,7 +85,22 @@ Phases, one or more lines each:
      the second run loads them; both print OK), and the same with one
      transcript byte of the proof flipped, which must exit non-zero.  The
      wrap runs on the host (the port's curve engine, built with g++ from
-     provekit_tpu_torch/native/curve.cpp) and launches no kernel.
+     provekit_tpu_torch/native/curve.cpp) and launches no kernel;
+ 10. the sharded prover (provekit_tpu_torch.parallel, SPMD over
+     torch.distributed): (a) the six sharded functions (Spartan and WHIR
+     round sums and folds, the four-step NTT, the Merkle root) on four
+     ranks that share the card over gloo, at the poseidon2 x1000 path's
+     shapes (Spartan (16, 4, 2^19), WHIR (16, 2, 2^20), the NTT at 2^21,
+     leaves (16, 32, 2^17)), each exactly against its single-device
+     counterpart on the card, the collectives' calls and bytes against
+     their model; then poseidon2 x1000 at security 128 from phase 6's
+     scheme, witness and rng state, (b) under make_mesh(1) in this
+     process, (c) on one rank over NCCL, (d) on four ranks sharing the card
+     over gloo (each with a warm-up prove; every proof to the pinned
+     digest, rank 0's verified; each rank's spans, wall, launches, peak
+     device memory and collectives by stage, beside phase 6's FUSE_MAX = 0
+     prove); (e) the CM31 NTT at 2^20 on the card against the CPU.  The
+     ranks load the kernels and host libraries of phase 2.  Budget 240 s.
 The line before the last is the kernel JSON, the one before it the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.  Any
 failure exits non-zero before them.  The script needs a CUDA card and the
@@ -99,6 +114,13 @@ import random
 import subprocess
 import sys
 import time
+
+from provekit_tpu_torch.protocol.examples import build_system as \
+    build_tiny_system
+from provekit_tpu_torch.protocol.examples import tiny_scheme
+from provekit_tpu_torch.utils.counts import (SEGMENT_KERNELS,
+                                             kernel_counters, read_counts,
+                                             reset_counts)
 
 TINY_DIGEST = "efa6851f51a1090ab1139f427a9a67daa4b2c16037937f0e853bb8db0c5cbfb0"
 # the proofs of phases 6 and 7 (their rng is seeded)
@@ -129,8 +151,6 @@ MONT_MUL_MULADDS = 2 * (64 + 64) + 8
 MONT_SQR_MULADDS = 2 * (36 + 64) + 8
 LADDER_SQUARES = 14
 PLANE_BYTES = 64  # one field element: 16 digit planes of int32
-# the fused sumcheck segments (csrc/sumcheck_segment.cu)
-SEGMENT_KERNELS = ["whir_segment", "spartan_segment"]
 FUSED_PY = "provekit_tpu/ops/fused.py"
 # the kernels every prove of phases 6-9 launches (sha256 x100 adds K2)
 ON_PATH = ["mont_mul", "ntt_stage", "compress", "compress_fold", "duplex",
@@ -1005,44 +1025,6 @@ def phase_mxu(torch, dev):
     return launches
 
 
-def build_tiny_system(seed: int, n_mults: int):
-    """z_{i+1} = z_i * z_i + z_i: the JAX package's tests/test_e2e.py
-    build_system, on the port's R1CS."""
-    from provekit_tpu_torch.fields import bn254 as F
-    from provekit_tpu_torch.r1cs import R1CS
-    rng = random.Random(seed)
-    r = R1CS()
-    x0 = r.new_witness()
-    vals = {0: 1, x0: rng.randrange(F.P)}
-    prev = x0
-    for _ in range(n_mults):
-        sq = r.new_witness()
-        r.add_constraint([(1, prev)], [(1, prev)], [(1, sq)])
-        vals[sq] = vals[prev] * vals[prev] % F.P
-        nxt = r.new_witness()
-        r.add_constraint([(1, sq), (1, prev)], [(1, 0)], [(1, nxt)])
-        vals[nxt] = (vals[sq] + vals[prev]) % F.P
-        prev = nxt
-    return r, [vals[i] for i in range(r.num_witnesses)]
-
-
-def tiny_scheme(r1cs, device, security=3, folding=2, max_pow=2):
-    """The JAX package's tests/test_verifier_circuit.py tiny_scheme."""
-    from provekit_tpu_torch.protocol import WhirR1CSScheme
-    from provekit_tpu_torch.protocol.scheme import next_power_of_two_log
-    from provekit_tpu_torch.whir.parameters import WhirConfig
-    m = next_power_of_two_log(r1cs.num_witnesses) + 1
-    m_0 = max(1, next_power_of_two_log(r1cs.num_constraints))
-    bv = next_power_of_two_log(4 * m_0) + 1
-    cfg = dict(batch_size=2, security_level=security, max_pow_bits=max_pow,
-               folding_factor=folding)
-    return WhirR1CSScheme(
-        m=m, m_0=m_0, a_num_terms=next_power_of_two_log(max(1, r1cs.a.nnz)),
-        whir_witness=WhirConfig(num_variables=m, **cfg),
-        whir_for_hiding_spartan=WhirConfig(num_variables=bv, **cfg),
-        security_level=security, max_pow_bits=max_pow, device=device)
-
-
 def expect_rejected(scheme, r1cs, proof: bytes, positions) -> None:
     from provekit_tpu_torch.whir.verifier import WhirError
     for pos in positions:
@@ -1069,27 +1051,6 @@ def phase_tiny(dev):
                     [8, len(proof) // 2, len(proof) - 33])
     log(f"[5] tiny scheme on {dev}: digest {digest[:16]}... matches, "
         f"verify ok, 3 flipped bytes rejected (prove {prove_s:.3f} s)")
-
-
-def reset_counts(counters) -> None:
-    for fn in counters.values():
-        fn.launches = 0
-        if hasattr(fn, "permutations"):
-            fn.permutations = 0
-
-
-def read_counts(counters) -> dict:
-    """Each counter's launches, and the sponge's permutations: in duplex
-    launches, in the segment kernels, in all."""
-    out = {k: fn.launches for k, fn in counters.items()}
-    out["duplex_permutations"] = counters["duplex"].permutations
-    for k in SEGMENT_KERNELS:
-        out[f"{k}_permutations"] = counters[k].permutations
-    out["segment_permutations"] = sum(counters[k].permutations
-                                      for k in SEGMENT_KERNELS)
-    out["sponge_permutations"] = (out["duplex_permutations"]
-                                  + out["segment_permutations"])
-    return out
 
 
 SKYSCRAPER_KERNELS = ("compress_kernel", "compress_fold_kernel",
@@ -1260,7 +1221,9 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
     Each verify runs twice: with the host library, then with the plain
     host hash (:func:`plain_host_hash`).  With ``plain_solve``, the plain
     solve runs beside the native one (:func:`compare_solves`).  Returns the
-    launch counts."""
+    timed prove's launch counts, and the scheme, R1CS, proof, witness, the
+    timed prove's ``rng`` state and each timed prove's wall seconds, spans
+    and peak device memory (by label)."""
     from provekit_tpu_torch.compiler import NoirProofScheme
     from provekit_tpu_torch.ops import fused as fused_ops
     from provekit_tpu_torch.utils import profiling
@@ -1318,8 +1281,11 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
             f"launches: {launches}; peak device memory {peak_gib:.3f} GiB")
         if got != digest:
             fail(f"{name}: {label} proof digest {got} != {digest}")
+        records[label] = {"wall_s": stages[label], "spans": spans,
+                          "peak_gib": peak_gib}
         return proof, launches
 
+    records = {}
     rng_state = rng.getstate()
     proof, launches = timed("prove")
     fused = profile_prove(torch, whir, r1cs, witness, profile_to, tag)
@@ -1348,7 +1314,9 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         fail(f"kernels not launched by the {name} path: {missing}")
-    return launches, (whir, r1cs, proof)
+    return launches, {"whir": whir, "r1cs": r1cs, "proof": proof,
+                      "witness": witness, "rng_state": rng_state,
+                      "records": records}
 
 
 def compare_solves(scheme, acir_values) -> tuple[float, float]:
@@ -1711,7 +1679,7 @@ def phase_gnark_export(passport_nps, passport_np, poseidon, work) -> None:
         + ", ".join(f"{p} {s:.3f} s" for p, s in spans)
         + f"), go_parse walk in {time.perf_counter() - t0:.3f} s: {walk}")
 
-    whir, r1cs, proof = poseidon
+    whir, r1cs, proof = poseidon["whir"], poseidon["r1cs"], poseidon["proof"]
     out = work / "poseidon_gnark"
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -1791,6 +1759,262 @@ def phase_recursion(counters, segments, work) -> dict:
     return launches
 
 
+# phase 10: the sharded prover, four ranks sharing the card over gloo
+MESH_WORLD = 4
+PHASE10_BUDGET_S = 240
+POSEIDON_COUNTS = (515_003, 515_005)  # constraints, witnesses
+
+
+def mesh_shapes() -> dict:
+    """The sharded functions' shapes on the poseidon2 x1000 path (the
+    shapes of ``parallel.dryrun.check_sharded``): Spartan abce (16, 4,
+    2^m_0), WHIR fw (16, 2, 2^m), the RS encoding's NTT (2^21) and the
+    largest Merkle leaves of the prove."""
+    shape = scheme_shape(*POSEIDON_COUNTS)
+    return {"spartan": 1 << shape["m_0"], "whir": 1 << shape["m"],
+            "ntt_log": shape["rs_domain_log"],
+            "leaf": max(poseidon_leaf_shapes(), key=lambda s: s[0] * s[1])}
+
+
+def step_collectives(shapes: dict, world: int, host_copies: bool) -> list:
+    """The collectives of ``parallel.dryrun.check_sharded`` on ``world``
+    ranks, as ``dryrun.comm_rows`` lists them: [stage, collective, calls,
+    bytes, host bytes].  The round sums are one int64 (16, 3) all_reduce,
+    the NTT two all_to_alls of the rank's (16, n / S) int32 row, the root
+    one all_gather of a (16,) int32 digest; over gloo on CUDA tensors
+    (``host_copies``) each is copied to the host and its result back."""
+    row = 64 * (1 << shapes["ntt_log"]) // world
+    rows = [["spartan_round_sharded", "psum_mod", 1, 384, 768],
+            ["whir_round_sharded", "psum_mod", 1, 384, 768],
+            ["ntt_sharded", "all_to_all", 2, 2 * row, 4 * row],
+            ["merkle_root_sharded", "all_gather", 1, 64, 64 + 64 * world]]
+    if not host_copies:
+        for r in rows:
+            r[4] = 0
+    return sorted(rows)
+
+
+def prove_collectives(scheme, world: int) -> list:
+    """The collectives of one prove of ``scheme`` on ``world`` ranks, from
+    its shape alone, as [stage, collective, calls] rows sorted like
+    ``parallel.dryrun.comm_rows``.  An array or a tree of n elements is
+    sharded where n / S is a whole number of at least 2.  A sumcheck of r
+    rounds on n elements takes min(r, log2(n / S)) psum_mods and one
+    all_gather when it shards; a sharded tree takes one all_gather of the
+    subtree roots when it is built and one owner_sum of the auth paths each
+    time it is opened.  The witness is committed in ``commit_witness`` and
+    opened in ``whir_open_witness``; the Spartan rounds, the blinding
+    polynomial's commit and its opening run in ``zk_spartan_sumcheck``."""
+    calls = {}
+
+    def add(stage, op, k=1):
+        if k:
+            calls[stage, op] = calls.get((stage, op), 0) + k
+
+    def per_rank(log_n):
+        n = 1 << log_n
+        return n // world if n % world == 0 and n // world >= 2 else 0
+
+    def tree(stage, log_leaves):
+        sharded = per_rank(log_leaves) > 0
+        add(stage, "all_gather", sharded)
+        return sharded
+
+    def sumcheck(stage, log_n, rounds):
+        per = per_rank(log_n)
+        k = min(rounds, per.bit_length() - 1) if per else 0
+        add(stage, "psum_mod", k)
+        add(stage, "all_gather", k > 0)
+
+    def commit(stage, cfg):
+        return tree(stage, cfg.starting_log_domain
+                    - cfg.initial_folding_factor)
+
+    def open_whir(stage, cfg, sharded):
+        log_n = cfg.num_variables
+        sumcheck(stage, log_n, cfg.initial_folding_factor)
+        log_n -= cfg.initial_folding_factor
+        for r, rc in enumerate(cfg.rounds):
+            next_sharded = tree(stage, cfg.starting_log_domain - (r + 1)
+                                - rc.folding_factor)
+            add(stage, "owner_sum", sharded)
+            sumcheck(stage, log_n, rc.folding_factor)
+            log_n -= rc.folding_factor
+            sharded = next_sharded
+        add(stage, "owner_sum", sharded)
+        sumcheck(stage, log_n, cfg.final_sumcheck_rounds)
+
+    witness = commit("commit_witness", scheme.whir_witness)
+    spartan = "zk_spartan_sumcheck"
+    sumcheck(spartan, scheme.m_0, scheme.m_0)
+    hiding = scheme.whir_for_hiding_spartan
+    open_whir(spartan, hiding, commit(spartan, hiding))
+    open_whir("whir_open_witness", scheme.whir_witness, witness)
+    return sorted([stage, op, k] for (stage, op), k in calls.items())
+
+
+def mesh_prove_faults(recs: list, scheme, world: int) -> list:
+    """What is wrong with the records (``parallel.dryrun.prove_timed``) of
+    one prove of ``scheme`` by each of ``world`` ranks: a rank whose
+    collectives differ from rank 0's, collective calls other than
+    :func:`prove_collectives`'s, or a sumcheck segment launched (under a
+    mesh every round runs one at a time)."""
+    faults = []
+    want = prove_collectives(scheme, world)
+    for rank, rec in enumerate(recs):
+        got = [row[:3] for row in rec["collectives"]]
+        if rec["collectives"] != recs[0]["collectives"]:
+            faults.append(f"rank {rank}'s collectives differ from rank 0's")
+        if got != want:
+            faults.append(f"rank {rank}'s collective calls {got} != {want}")
+        for seg in ("whir_segment", "spartan_segment"):
+            if rec["launches"].get(seg, 0):
+                faults.append(f"rank {rank} launched {seg} "
+                              f"{rec['launches'][seg]} times")
+    return faults
+
+
+def log_prove_record(tag: str, label: str, rec: dict) -> None:
+    """A line for one of ``parallel.dryrun.prove_timed``'s records."""
+    peak = rec["peak_gib"]
+    log(f"{tag} {label}: proof sha256 {rec['sha256']}, wall "
+        f"{rec['wall_s']:.3f} s; spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in rec["spans"].items())
+        + "; peak device memory "
+        + ("not measured" if peak is None else f"{peak:.3f} GiB")
+        + f"; launches {rec['launches']}")
+
+
+def phase_mesh(torch, dev, poseidon) -> dict:
+    """[10] The sharded prover (provekit_tpu_torch.parallel): (a) the six
+    sharded functions on four ranks sharing the card over gloo, at the
+    poseidon2 x1000 path's shapes, each exactly against its single-device
+    counterpart on the card, with the collectives' counts against their
+    model; then poseidon2 x1000 at security 128 (phase 6's scheme, witness
+    and rng state) (b) under ``make_mesh(1)`` in this process, (c) on one
+    rank over NCCL, (d) on four ranks sharing the card over gloo, each
+    proof to the pinned digest, (d)'s verified, no segment launched, and
+    (c)'s and every (d) rank's collective calls those of
+    :func:`prove_collectives` (the digest alone cannot tell whether the
+    prove sharded anything); (e) the CM31 NTT at 2^20 on
+    the card against the CPU.  Ranks load the kernels and host libraries
+    phase 2 built.  Returns rank 0's launch counts of (d)."""
+    import gc
+    import pickle
+
+    from provekit_tpu_torch.fields import m31
+    from provekit_tpu_torch.parallel import dryrun as D
+    from provekit_tpu_torch.parallel import launch, make_mesh
+    t10 = time.perf_counter()
+    # the ranks are processes of their own: hand them the memory this
+    # process's allocator keeps cached from phases 6-9
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        log(f"[10] this process keeps "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB allocated "
+            f"({torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved) "
+            "on the card beside the ranks")
+    shapes = mesh_shapes()
+    t0 = time.perf_counter()
+    ranks = launch(D.check_sharded, MESH_WORLD, "gloo", device="cuda",
+                   share_device=True, args=(SEED, shapes))
+    for rank, res in enumerate(ranks):
+        log(f"[10] (a) rank {rank}: " + ", ".join(
+            f"{k} {tuple(v['shape'])} err {v['max_abs_err']} {v['ms']:.3f} ms"
+            for k, v in res["functions"].items()))
+        bad = {k: v["max_abs_err"] for k, v in res["functions"].items()
+               if v["max_abs_err"]}
+        if bad:
+            fail(f"sharded functions differ on rank {rank}: {bad}")
+        want = step_collectives(shapes, MESH_WORLD,
+                                host_copies=dev.type == "cuda")
+        if res["collectives"] != want:
+            fail(f"rank {rank}'s collectives {res['collectives']} != {want}")
+    log(f"[10] (a) the six sharded functions on {MESH_WORLD} gloo ranks "
+        f"sharing the card at {shapes}: exact on every rank in "
+        f"{time.perf_counter() - t0:.3f} s with the spawn; rank 0's "
+        f"collectives:\n{D.comm_table(ranks[0]['collectives'])}")
+
+    whir, r1cs = poseidon["whir"], poseidon["r1cs"]
+    witness, state = poseidon["witness"], poseidon["rng_state"]
+    mesh1 = make_mesh(1, device=dev)
+    rec = D.prove_timed(mesh1, whir, r1cs, witness, state)
+    log_prove_record("[10] (b)", "poseidon2 x1000 under make_mesh(1)", rec)
+    if rec["sha256"] != POSEIDON_DIGEST:
+        fail(f"make_mesh(1) prove digest {rec['sha256']}")
+    # one rank in-process has no group: no collective, and no segment
+    segs = {k: rec["launches"][k] for k in ("whir_segment",
+                                             "spartan_segment")}
+    if rec["collectives"] or any(segs.values()):
+        fail(f"make_mesh(1) prove: collectives {rec['collectives']}, "
+             f"segment launches {segs}")
+
+    blob = pickle.dumps((whir, r1cs, witness))
+    t0 = time.perf_counter()
+    [rec] = launch(D.prove_blob, 1, "nccl", device="cuda", args=(blob, state))
+    log_prove_record("[10] (c)", "one NCCL rank", rec)
+    log(f"[10] (c) one NCCL rank's collectives "
+        f"({time.perf_counter() - t0:.3f} s with the spawn and a warm-up "
+        f"prove):\n{D.comm_table(rec['collectives'])}")
+    if rec["sha256"] != POSEIDON_DIGEST:
+        fail(f"one NCCL rank's prove digest {rec['sha256']}")
+    if not rec["collectives"]:
+        fail("one NCCL rank's prove counted no collective")
+    faults = mesh_prove_faults([rec], whir, 1)
+    if faults:
+        fail(f"one NCCL rank's prove: {faults}")
+
+    t0 = time.perf_counter()
+    recs = launch(D.prove_blob, MESH_WORLD, "gloo", device="cuda",
+                  share_device=True, args=(blob, state))
+    spawn_s = time.perf_counter() - t0
+    unfused = poseidon["records"]["prove_unfused"]
+    log(f"[10] (d) phase 6's FUSE_MAX = 0 prove, one process alone on the "
+        f"card: wall {unfused['wall_s']:.3f} s; spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in unfused["spans"].items())
+        + f"; peak {unfused['peak_gib']:.3f} GiB")
+    for rank, r in enumerate(recs):
+        log_prove_record("[10] (d)", f"rank {rank} of {MESH_WORLD} gloo "
+                         "ranks sharing the card", r)
+        if r["sha256"] != POSEIDON_DIGEST:
+            fail(f"rank {rank}'s prove digest {r['sha256']}")
+    faults = mesh_prove_faults(recs, whir, MESH_WORLD)
+    if faults:
+        fail(f"{MESH_WORLD} gloo ranks' prove: {faults}")
+    whir.verify(r1cs, recs[0]["proof"])
+    log(f"[10] (d) {MESH_WORLD} ranks: every proof {POSEIDON_DIGEST[:16]}..."
+        f", rank 0's verifies; every rank's collectives equal rank 0's and "
+        f"prove_collectives' calls, no rank launched a segment; peak device "
+        f"memory of the ranks together "
+        f"{sum(r['peak_gib'] or 0 for r in recs):.3f} GiB (each rank's CUDA "
+        f"context besides); {spawn_s:.3f} s with the spawn and a warm-up "
+        f"prove; rank 0's collectives:\n"
+        f"{D.comm_table(recs[0]['collectives'])}")
+
+    gen = torch.Generator().manual_seed(SEED)
+    xr, xi = (torch.randint(0, m31.P31, (1 << 20,), generator=gen,
+                            dtype=torch.int64) for _ in range(2))
+    t0 = time.perf_counter()
+    want = m31.cm31_ntt(xr, xi)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = m31.cm31_ntt(xr.to(dev), xi.to(dev))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    err = max(max_abs_err(torch, g.cpu(), w) for g, w in zip(got, want))
+    back = m31.cm31_intt(*got)
+    if err or not (torch.equal(back[0].cpu(), xr)
+                   and torch.equal(back[1].cpu(), xi)):
+        fail(f"the CM31 NTT at 2^20 differs on the card (max abs err {err})")
+    log(f"[10] (e) CM31 NTT at 2^20: the card equals the CPU (max abs err 0)"
+        f" and inverts; first call on the card {card_s:.3f} s, on the CPU "
+        f"{cpu_s:.3f} s")
+    log("[10] " + budget_line("phase 10", time.perf_counter() - t10,
+                              PHASE10_BUDGET_S))
+    return recs[0]["launches"]
+
+
 def main() -> int:
     from pathlib import Path
     import torch
@@ -1798,17 +2022,9 @@ def main() -> int:
         fail("torch.cuda.is_available() is false; this smoke run needs a "
              "CUDA card")
     from provekit_tpu_torch.circuits import poseidon, sha256
-    from provekit_tpu_torch.fields import vector as V
-    from provekit_tpu_torch.hash import skyscraper as S
-    from provekit_tpu_torch.ops import fused, ntt
 
     dev = torch.device("cuda", 0)
-    counters = {"mont_mul": V.mont_mul, "ntt_stage": ntt.ntt_stage,
-                "butterfly": ntt.butterfly, "compress": S.compress_v,
-                "compress_fold": S.compress_fold_v, "permute": S.permute_v,
-                "duplex": S.duplex_v,
-                "whir_segment": fused.whir_sumcheck_segment,
-                "spartan_segment": fused.spartan_sumcheck_fused}
+    counters = kernel_counters()
     card, rates = phase_toolchain(torch)
     phase_build()
     rows, segments = phase_kernels(torch, dev, rates)
@@ -1835,11 +2051,12 @@ def main() -> int:
     work.mkdir(parents=True, exist_ok=True)
     phase_gnark_export(passport_nps, passport_np, poseidon_export, work)
     passport_nps.unlink()
-    del poseidon_export
     by_path["recursion_cli"] = phase_recursion(
         counters, segments["recursion_cli"], work)
     log("[9] " + budget_line("phase 9", time.perf_counter() - t9,
                              PHASE9_BUDGET_S))
+    by_path["mesh4_rank"] = phase_mesh(torch, dev, poseidon_export)
+    del poseidon_export
     log(f"total {time.perf_counter() - T0:.3f} s")
 
     kernels = []

@@ -11,7 +11,9 @@ absorb/squeeze pattern is static.
   the round sums, the scalar step (one duplex launch) and the fold, each a
   few launches.  The provers run the leading rounds this way, those on
   arrays longer than :data:`FUSE_MAX` (:func:`lead_rounds`): none on the
-  repository's circuits at the default.
+  repository's circuits at the default.  Under a mesh
+  (``parallel.context``) they run every round this way, on the rank's
+  shard, with the round sums psum'd; no segment is launched.
 * :func:`whir_sumcheck_segment` and :func:`spartan_sumcheck_fused` run all
   remaining rounds in one cooperative launch of
   ``csrc/sumcheck_segment.cu`` over the card on a CUDA tensor (counted in
@@ -34,6 +36,7 @@ from .. import kernels as K
 from ..fields import bn254 as F
 from ..fields import vector as V
 from ..hash import skyscraper as S
+from ..parallel import collectives as C
 from . import sumcheck as sc
 
 
@@ -125,36 +128,50 @@ def _stacked(cols: list, k: int, dev) -> tuple:
     return torch.stack(msgs, dim=1), torch.cat(alphas, dim=1)
 
 
-def whir_rounds(fw: torch.Tensor, state: torch.Tensor, count: int):
+def _round_sums(sums: tuple, mesh) -> list:
+    """A round's (16,) sums as (16, 1) columns; on a mesh, psum'd over its
+    ranks (one all_reduce)."""
+    if mesh is None:
+        return [h.reshape(16, 1) for h in sums]
+    return list(C.psum_mod(torch.stack(sums, dim=1), mesh).split(1, dim=1))
+
+
+def whir_rounds(fw: torch.Tensor, state: torch.Tensor, count: int,
+                mesh=None):
     """``count`` WHIR rounds (LSB pairing) on fw (16, 2, n) [f; w]
     Montgomery, one at a time: round sums -> [messages + sponge advance]
     -> fold.  Returns (fw (16, 2, n >> count), state', messages
-    (16, count, 3) canonical, alphas (16, count) canonical)."""
+    (16, count, 3) canonical, alphas (16, count) canonical).
+
+    With ``mesh``, fw is the rank's contiguous block and each round's sums
+    are psum'd over the mesh (the block folds locally)."""
     cols = []
     for _ in range(count):
-        ev, d, h0, h1, h2 = sc.whir_round_split_dev(fw)
-        state, msgs_c, alpha_c, alpha_m = whir_scalar_step(
-            state, h0.reshape(16, 1), h1.reshape(16, 1), h2.reshape(16, 1))
+        ev, d, *sums = sc.whir_round_split_dev(fw)
+        h0, h1, h2 = _round_sums(sums, mesh)
+        state, msgs_c, alpha_c, alpha_m = whir_scalar_step(state, h0, h1, h2)
         cols.append((msgs_c, alpha_c))
         fw = sc.fold_from_split_dev(ev, d, alpha_m)
     return (fw, state, *_stacked(cols, 3, fw.device))
 
 
 def spartan_rounds(abce: torch.Tensor, state: torch.Tensor, claim, prefix,
-                   rho, g_coeffs, pms, sms, suffix, count: int):
+                   rho, g_coeffs, pms, sms, suffix, count: int, mesh=None):
     """``count`` ZK-Spartan rounds (MSB pairing) on abce (16, 4, n)
     [a; b; c; eq] Montgomery, one at a time; round i takes the blinding
     cubic ``g_coeffs[:, i]`` and the factors ``pms``, ``sms``, ``suffix``
     column i (see protocol.spartan).  Returns (abce (16, 4, n >> count),
     state', coefficients (16, count, 4) canonical, alphas (16, count)
-    canonical, claim', prefix')."""
+    canonical, claim', prefix').
+
+    With ``mesh``, abce is the rank's cyclic shard and each round's sums
+    are psum'd over the mesh (the shard folds locally)."""
     cols = []
     for i in range(count):
-        f0, fm1, finf = sc.spartan_round_stacked(abce)
+        f0, fm1, finf = _round_sums(sc.spartan_round_stacked(abce), mesh)
         (state, cs_c, alpha_c, alpha_m, claim,
          prefix) = spartan_scalar_step(
-            state, f0.reshape(16, 1), fm1.reshape(16, 1),
-            finf.reshape(16, 1), claim, prefix, g_coeffs[:, i],
+            state, f0, fm1, finf, claim, prefix, g_coeffs[:, i],
             pms[:, i:i + 1], sms[:, i:i + 1], suffix[:, i:i + 1], rho)
         cols.append((cs_c, alpha_c))
         abce = sc.fold_stacked_msb(abce, alpha_m)

@@ -30,6 +30,7 @@ from ..fields import vector as V
 from ..fs import DomainSeparator
 from ..fs import device as D
 from ..ops import sumcheck as sc
+from ..parallel import context as pctx
 from ..r1cs import R1CS
 from ..utils.profiling import span
 from ..whir import (DenseWeights, Statement, WhirConfig, committer, prover,
@@ -118,10 +119,20 @@ class WhirR1CSScheme:
 
     # -- prove -------------------------------------------------------------
 
-    def prove(self, r1cs: R1CS, witness: list[int], rng=None) -> bytes:
+    def prove(self, r1cs: R1CS, witness: list[int], rng=None,
+              mesh=None) -> bytes:
         """Prove R1CS satisfaction on ``self.device``.  ``rng`` (a
         ``random.Random``) is the proof's only randomness: the ZK masks and
-        blinding polynomials; without one it is the OS's entropy."""
+        blinding polynomials; without one it is the OS's entropy.
+
+        With ``mesh`` (``parallel.make_mesh``), this rank proves its share:
+        every rank of the mesh calls ``prove`` with the same ``r1cs``,
+        ``witness`` and ``rng`` state, the sumchecks and Merkle subtrees are
+        sharded over the ranks (``parallel/context.py``), and every rank
+        returns the single-device proof's bytes."""
+        if mesh is not None:
+            with pctx.use_mesh(mesh):
+                return self.prove(r1cs, witness, rng=rng)
         rng = rng if rng is not None else random.SystemRandom()
         assert len(witness) == r1cs.num_witnesses
         assert r1cs.num_witnesses <= 1 << self.m

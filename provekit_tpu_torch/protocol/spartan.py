@@ -27,6 +27,7 @@ from ..fields import vector as V
 from ..fs import device as D
 from ..ops import fused
 from ..ops import sumcheck as sc
+from ..parallel import context as pctx
 from ..whir import (DenseWeights, Statement, WhirConfig, committer, prover,
                     verifier)
 from ..whir.verifier import WhirError
@@ -254,17 +255,30 @@ def _spartan_rounds(transcript, abce, claim, prefix, rho_m, g_arr,
     """All ZK-Spartan rounds, the reference's hybrid
     (``provekit_tpu/protocol/spartan.py:245-275``): rounds on arrays longer
     than ``fused.FUSE_MAX`` one at a time, carrying the claim and the
-    blinding prefix into one fused segment for the rest.  Returns the
-    alphas (16, m_0) canonical."""
+    blinding prefix into one fused segment for the rest.  Under a mesh
+    every round runs one at a time, as the reference does (``lead = m_0``):
+    on the ranks' cyclic shards of abce while a shard holds a pair, with
+    the round sums psum'd and the fold local, then on the all-gathered
+    array.  Returns the alphas (16, m_0) canonical."""
     m_0 = g_arr.shape[1]
-    lead = fused.lead_rounds(abce.shape[2], m_0)
+    mesh = pctx.active_mesh()
+    if mesh is None:
+        sharded, lead = 0, fused.lead_rounds(abce.shape[2], m_0)
+    else:
+        sharded, lead = pctx.sharded_rounds(abce.shape[2], m_0, mesh), m_0
     alphas = []
-    if lead:
-        abce, state2, cs, a, claim, prefix = fused.spartan_rounds(
-            abce, transcript.state, claim, prefix, rho_m, g_arr, pms_a,
-            sms_a, sfx_a, lead)
+    for start, stop, shard in ((0, sharded, mesh), (sharded, lead, None)):
+        if stop == start:
+            continue
+        cols = slice(start, stop)
+        x = abce if shard is None else pctx.cyclic(abce, shard)
+        x, state2, cs, a, claim, prefix = fused.spartan_rounds(
+            x, transcript.state, claim, prefix, rho_m, g_arr[:, cols],
+            pms_a[:, cols], sms_a[:, cols], sfx_a[:, cols], stop - start,
+            shard)
+        abce = x if shard is None else pctx.gather_cyclic(x, shard)
         transcript.replay_fused(state2, list(cs.unbind(1)),
-                                [("A", 4), ("S", 1)] * lead)
+                                [("A", 4), ("S", 1)] * (stop - start))
         alphas.append(a)
     if lead < m_0:
         tail = m_0 - lead

@@ -78,6 +78,10 @@ class SparseMatrix:
 
     # -- device side -------------------------------------------------------
 
+    def __getstate__(self):
+        """The host matrix; its device copy is a cache, left behind."""
+        return {**self.__dict__, "_frozen": None}
+
     def frozen(self, device) -> "FrozenMatrix":
         device = torch.device(device)
         if self._frozen is None or self._frozen.rows.device != device:

@@ -8,10 +8,13 @@ the transcript bytes from one final fetch.  STIR index dedup is a sort +
 unique mask + rank on the device that reproduces the verifier's
 ``sorted(set(indices))`` and consecutive-powers semantics exactly.  The
 sumcheck rounds (``_sumcheck_rounds``) take the reference's hybrid: large
-leading rounds one at a time, the tail as one fused segment.
+leading rounds one at a time, the tail as one fused segment; under a mesh
+(``parallel.context``) every round one at a time on the ranks' blocks.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -21,6 +24,7 @@ from ..fs import device as D
 from ..ops import fused, merkle, ntt
 from ..ops import pow as pow_mod
 from ..ops import sumcheck as sc
+from ..parallel import context as pctx
 from ..utils.profiling import span
 from .committer import ProverCommitment, fold_leaves_view
 from .parameters import WhirConfig
@@ -203,13 +207,23 @@ def _send_pow_dev(transcript, bits: float) -> None:
 def _sumcheck_rounds(transcript, fw: torch.Tensor, count: int):
     """``count`` WHIR sumcheck rounds: the leading rounds on arrays longer
     than ``fused.FUSE_MAX`` one at a time, then the rest as one fused
-    segment.  Returns (folded fw, alphas (16, count) canonical)."""
+    segment.  Under a mesh every round runs one at a time, as in the JAX
+    package: on the ranks' contiguous blocks while a block holds a pair,
+    the block all-gathered after, the rest replicated.  Returns (folded fw,
+    alphas (16, count) canonical)."""
     assert count == 0 or transcript.absorb_pos == 0, \
         "rounds must start after a squeeze"
-    lead = fused.lead_rounds(fw.shape[2], count)
+    mesh = pctx.active_mesh()
+    if mesh is None:
+        lead = fused.lead_rounds(fw.shape[2], count)
+        runs = [(fused.whir_rounds, lead),
+                (fused.whir_sumcheck_segment, count - lead)]
+    else:
+        k = pctx.sharded_rounds(fw.shape[2], count, mesh)
+        runs = [(functools.partial(_whir_rounds_sharded, mesh=mesh), k),
+                (fused.whir_rounds, count - k)]
     alphas = []
-    for run, k in ((fused.whir_rounds, lead),
-                   (fused.whir_sumcheck_segment, count - lead)):
+    for run, k in runs:
         if k:
             fw, state2, msgs, a = run(fw, transcript.state, k)
             transcript.replay_fused(state2, list(msgs.unbind(1)),
@@ -218,6 +232,13 @@ def _sumcheck_rounds(transcript, fw: torch.Tensor, count: int):
     if not alphas:
         return fw, V.zeros((0,), fw.device)
     return fw, torch.cat(alphas, dim=1)
+
+
+def _whir_rounds_sharded(fw, state, count: int, mesh):
+    """``fused.whir_rounds`` on the rank's contiguous block of fw, the
+    folded blocks all-gathered."""
+    fw, *out = fused.whir_rounds(pctx.block(fw, mesh), state, count, mesh)
+    return (pctx.gather_block(fw, mesh), *out)
 
 
 def _stir_ranks(qs_canon: torch.Tensor, folded_domain: int):

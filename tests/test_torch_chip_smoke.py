@@ -404,3 +404,96 @@ def test_compare_solves_and_recorded_solves(monkeypatch):
     monkeypatch.setattr(native, "solve_witness", one_differs)
     with pytest.raises(SystemExit):
         C.compare_solves(scheme, vals)
+
+
+# -- phase 10's helpers ------------------------------------------------------
+
+
+def test_mesh_shapes_are_the_poseidon_paths():
+    """Phase 10 (a) runs the sharded functions at the poseidon2 x1000
+    prove's shapes: Spartan (16, 4, 2^19), WHIR (16, 2, 2^20), the RS
+    encoding's NTT at 2^21 and its largest leaves (16, 32, 2^17)."""
+    assert C.mesh_shapes() == {"spartan": 1 << 19, "whir": 1 << 20,
+                               "ntt_log": 21, "leaf": (32, 1 << 17)}
+    assert C.MESH_WORLD == 4
+    assert C.PHASE10_BUDGET_S == 240
+    assert "phase 10 took" in C.budget_line("phase 10", 1.0,
+                                            C.PHASE10_BUDGET_S)
+
+
+def test_step_collectives_at_the_mesh_shapes():
+    """Four ranks over gloo on CUDA tensors: each collective's payload, and
+    its copies to the host and back."""
+    rows = C.step_collectives(C.mesh_shapes(), 4, host_copies=True)
+    row = 64 * (1 << 21) // 4        # a rank's (16, 2^19) int32 NTT row
+    assert rows == [
+        ["merkle_root_sharded", "all_gather", 1, 64, 64 + 4 * 64],
+        ["ntt_sharded", "all_to_all", 2, 2 * row, 4 * row],
+        ["spartan_round_sharded", "psum_mod", 1, 16 * 3 * 8, 2 * 384],
+        ["whir_round_sharded", "psum_mod", 1, 384, 768]]
+    assert row * 2 == 67_108_864
+    assert [r[4] for r in C.step_collectives(C.mesh_shapes(), 4,
+                                             host_copies=False)] == [0] * 4
+
+
+def _poseidon_scheme():
+    """The shape of phase 6's poseidon2 x1000 scheme at security 128 (what
+    ``prove_collectives`` reads of it)."""
+    from types import SimpleNamespace
+
+    from provekit_tpu_torch.whir.parameters import WhirConfig
+    shape = C.scheme_shape(*C.POSEIDON_COUNTS)
+    m, m_0 = shape["m"], shape["m_0"]
+    return SimpleNamespace(m=m, m_0=m_0, whir_witness=WhirConfig(
+        num_variables=m, batch_size=2, security_level=128),
+        whir_for_hiding_spartan=WhirConfig(
+            num_variables=(4 * m_0 - 1).bit_length() + 1, batch_size=2,
+            security_level=128))
+
+
+@pytest.mark.parametrize("world,spartan_psums,whir_psums",
+                         [(1, 27, 20), (4, 23, 18)])
+def test_prove_collectives_of_the_poseidon_path(world, spartan_psums,
+                                                whir_psums):
+    """Phase 10 (c) and (d) hold every rank's collective calls to this
+    model: the Spartan rounds (m_0 = 19) and the blinding opening (8
+    variables) psum all their rounds on one rank and lose log2 S rounds
+    each on four; the witness opening (m = 20) loses 2 on four ranks, in
+    its final sumcheck (2^4 elements)."""
+    assert C.prove_collectives(_poseidon_scheme(), world) == [
+        ["commit_witness", "all_gather", 1],
+        ["whir_open_witness", "all_gather", 9],
+        ["whir_open_witness", "owner_sum", 5],
+        ["whir_open_witness", "psum_mod", whir_psums],
+        ["zk_spartan_sumcheck", "all_gather", 5],
+        ["zk_spartan_sumcheck", "owner_sum", 2],
+        ["zk_spartan_sumcheck", "psum_mod", spartan_psums]]
+
+
+def test_mesh_prove_faults_catch_a_bypassed_mesh():
+    """A prove that shards nothing, ranks that disagree, or a segment
+    launched under a mesh fail phase 10 even where the digest is right."""
+    scheme = _poseidon_scheme()
+    rows = [[*r, 64 * r[2], 0] for r in C.prove_collectives(scheme, 4)]
+    good = {"collectives": rows,
+            "launches": {"whir_segment": 0, "spartan_segment": 0}}
+    assert C.mesh_prove_faults([good] * 4, scheme, 4) == []
+    bypassed = {**good, "collectives": []}
+    assert C.mesh_prove_faults([bypassed] * 4, scheme, 4)
+    assert C.mesh_prove_faults([good] * 4, scheme, 1)
+    other = {**good, "collectives": [[*r[:3], r[3] + 1, 0] for r in rows]}
+    assert C.mesh_prove_faults([good, other], scheme, 4) == [
+        "rank 1's collectives differ from rank 0's"]
+    fused = {**good, "launches": {"whir_segment": 3, "spartan_segment": 0}}
+    assert C.mesh_prove_faults([good, fused], scheme, 4) == [
+        "rank 1 launched whir_segment 3 times"]
+
+
+def test_log_prove_record_reads_a_ranks_record(capsys):
+    rec = {"sha256": "ab" * 32, "wall_s": 1.5,
+           "spans": {"commit_witness": 0.5}, "peak_gib": None,
+           "launches": {"mont_mul": 3}}
+    C.log_prove_record("[10] (d)", "rank 0", rec)
+    out = capsys.readouterr().out
+    assert "wall 1.500 s" in out and "commit_witness 0.500 s" in out
+    assert "not measured" in out and "'mont_mul': 3" in out

@@ -27,8 +27,10 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    # 83 since native/build.py and native/encode.py
-    assert int(out.stdout.strip()) >= 83
+    # 83 since native/build.py and native/encode.py; 92 with parallel/
+    # (its package, context, collectives, launch, mesh, dryrun),
+    # fields/m31.py, protocol/examples.py and utils/counts.py
+    assert int(out.stdout.strip()) >= 92
 
 
 def test_port_sources_name_no_jax():
@@ -72,3 +74,54 @@ def test_kernel_signatures_match_sources():
             params = m.group(1).strip()
             count = params.count(",") + 1 if params else 0
             assert count == len(argtypes), (src, name)
+
+
+def test_parallel_and_m31_import_without_jax():
+    """The sharded prover and the M31 module are among the modules the
+    child above imports with JAX blocked; name them, so that a rename
+    cannot drop them unseen."""
+    import importlib
+    for name in ("parallel", "parallel.context", "parallel.collectives",
+                 "parallel.launch", "parallel.mesh", "parallel.dryrun",
+                 "fields.m31"):
+        importlib.import_module(f"provekit_tpu_torch.{name}")
+        assert (PORT / (name.replace(".", "/") + ".py")).exists() or \
+            (PORT / name.replace(".", "/") / "__init__.py").exists()
+
+
+def test_parallel_entry_points_default_to_the_card():
+    """make_mesh, launch and the dry run run on the card unless told
+    otherwise, and raise where there is none (no CPU fallback)."""
+    import inspect
+
+    import pytest
+    import torch
+
+    from provekit_tpu_torch.parallel import dryrun, launch, make_mesh
+    for fn in (make_mesh, launch):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert make_mesh(1).device == torch.device("cuda")
+    if torch.cuda.device_count() == 0:
+        with pytest.raises(ValueError, match="visible cards"):
+            dryrun.main(["--backend", "gloo", "--world", "1"])
+
+
+_LAYERS = """
+import sys
+import provekit_tpu_torch.parallel
+import provekit_tpu_torch.parallel.collectives
+upper = [m for m in sys.modules if m.split(".")[:2] in (
+    ["provekit_tpu_torch", "ops"], ["provekit_tpu_torch", "whir"],
+    ["provekit_tpu_torch", "protocol"])]
+assert not upper, upper
+assert "provekit_tpu_torch.parallel.mesh" not in sys.modules
+"""
+
+
+def test_parallel_package_imports_no_ops_layer():
+    """The ops layer imports ``parallel.context`` and
+    ``parallel.collectives``; the package, and those two, import nothing of
+    the layers above them (no import cycle)."""
+    out = subprocess.run([sys.executable, "-c", _LAYERS], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
