@@ -8,11 +8,12 @@ Phases, one or more lines each:
      torch, CUDA, nvcc, g++);
   2. build of the CUDA kernels from provekit_tpu_torch/csrc (one nvcc per
      source, in parallel), with its time and what ptxas reports of the
-     Skyscraper and segment kernels (registers, spills); it fails if either
-     segment kernel spills.  Beside them, g++ builds the port's two host
-     libraries from provekit_tpu_torch/native (native/build.py: the curve
-     engine, and the host library of the witness solve, the host sponge's
-     permutation, Merkle path and PoW checks), with their time;
+     Skyscraper, segment and tensor-core Montgomery kernels (registers,
+     spills); it fails if either segment kernel spills.  Beside them, g++
+     builds the port's two host libraries from provekit_tpu_torch/native
+     (native/build.py: the curve engine, and the host library of the
+     witness solve, the host sponge's permutation, Merkle path and PoW
+     checks), with their time;
   3. each kernel against its plain torch version on the card at the shapes
      its path gives it: exact equality, both times (CUDA events, median) and
      the kernel's bound.  The butterfly runs at the sha256 x100 path's shape
@@ -20,7 +21,8 @@ Phases, one or more lines each:
      2^24 -> 2^25 Reed-Solomon encoding runs with the kernels; mont_mul,
      compress and the leaf fold run at the largest leaf shapes of that
      path's commitment; the tensor-core Montgomery product runs at 2^21
-     beside the CIOS kernel.  The Skyscraper kernels also run at PoW's
+     beside the CIOS kernel, and at n = 1, 3, 64 and 4133 and on edge
+     values.  The Skyscraper kernels also run at PoW's
      broadcast shape and on edge values (0, 1, P - 1, P - 2, 2^253, inputs
      whose S-box output reaches 4P); the leaf fold at every leaf shape of
      the poseidon2 x1000 prove, beside single-step launches on the host's
@@ -40,7 +42,11 @@ Phases, one or more lines each:
      compression are held exactly to the Python version and to K5 and K4
      on the card, on every pair of the edge values and on seeded random
      pairs, with the microseconds a call of each on the host;
-  4. the tensor-core Montgomery experiment (experiments/mxu_mont.py);
+  4. the tensor-core Montgomery experiment (experiments/mxu_mont.py: K6
+     against K1 at 2^18, 2^20 and 2^21), then experiments/mxu_trace.py:
+     K6, its earlier design (mma.sync, one element a thread) and K1 timed
+     in turns at 2^21, and K6 and the earlier design split by phase from
+     traced builds, printed as one JSON line of its own;
   5. the tiny scheme on the card: pinned proof digest, verify, tamper;
   6. poseidon2 x1000 at security 128 through the port's entry points:
      build, from_program, solve_witness (the native solve, the default;
@@ -121,6 +127,7 @@ from provekit_tpu_torch.protocol.examples import tiny_scheme
 from provekit_tpu_torch.utils.counts import (SEGMENT_KERNELS,
                                              kernel_counters, read_counts,
                                              reset_counts)
+from provekit_tpu_torch.utils.profiling import back_to_back_ms
 
 TINY_DIGEST = "efa6851f51a1090ab1139f427a9a67daa4b2c16037937f0e853bb8db0c5cbfb0"
 # the proofs of phases 6 and 7 (their rng is seeded)
@@ -257,22 +264,6 @@ def max_abs_err(torch, a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def back_to_back_ms(torch, fn, reps: int = 20) -> float:
-    """Milliseconds a launch of ``reps`` launches queued back to back
-    between two CUDA events: the card does not idle while the host
-    prepares the next launch, as it can before a single timed launch."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def wall_ms(torch, fn, reps: int = 1) -> float:
     """Median host milliseconds of ``fn()`` from a synchronized card to a
     synchronized card, after one warm-up run: the host's launch work
@@ -395,7 +386,7 @@ def phase_build():
     log("[2] host libraries built with g++ beside them: "
         + ", ".join(f"{name} ({path}) in {sec:.3f} s"
                     for name, (path, sec) in host.items()))
-    for src in ("skyscraper.cu", "sumcheck_segment.cu"):
+    for src in ("skyscraper.cu", "sumcheck_segment.cu", "mont_mul_mma.cu"):
         for line in reports.get(src, "").splitlines():
             if "ptxas info" in line or "spill" in line:
                 log(f"[2] {src} {line.strip()}")
@@ -490,9 +481,24 @@ def phase_kernels(torch, dev, rates):
                     "int32_muladd": n * 2 * 64},
                source="mont_mul_mma.cu",
                replaces="scripts/mxu_mont_experiment.py:244")
-    log(f"[3] mont_mul_mma beside mont_mul at n=2^21: "
-        f"{rows.rows['mont_mul_mma']['ms']:.4f} ms against "
-        f"{rows.rows['mont_mul']['ms']:.4f} ms")
+    # one launch a sample includes the host's launch work; back to back
+    # leaves it out
+    for name, fn in (("mont_mul_mma", lambda: M.mont_mul_mma(a, b)),
+                     ("mont_mul", lambda: V.mont_mul(a, b))):
+        rows.rows[name]["back_to_back_ms"] = back_to_back_ms(fn)
+    k6, k1 = rows.rows["mont_mul_mma"], rows.rows["mont_mul"]
+    log(f"[3] mont_mul_mma beside mont_mul at n=2^21: {k6['ms']:.4f} ms "
+        f"against {k1['ms']:.4f} ms, back to back "
+        f"{k6['back_to_back_ms']:.4f} against {k1['back_to_back_ms']:.4f} "
+        f"ms (bound {k6['bound_ms']:.4f} ms)")
+    # tails (n % 4 != 0 takes the kernel's plain fill) and edge values
+    for m in (1, 3, 64, 4096 + 37):
+        x, y = a[:, :m].contiguous(), b[:, :m].contiguous()
+        rows.check("mont_mul_mma", f"n={m}", M.mont_mul_mma(x, y),
+                   M.mont_mul_mma_plain(x, y))
+    x, y = M.edge_operands(dev)
+    rows.check("mont_mul_mma", f"edge values, {x.shape[1]} pairs",
+               M.mont_mul_mma(x, y), M.mont_mul_mma_plain(x, y))
 
     phase_skyscraper(torch, rows, dev, a, b)
     phase_host_hash(torch, dev)
@@ -576,9 +582,9 @@ def phase_skyscraper(torch, rows, dev, a, b):
                    cuda_ms(lambda: S.compress_v(l, r), 20),
                    cuda_ms(lambda: S.compress_plain(l, r), 3), **extra)
     log(f"[3] 20 launches back to back, per launch: compress n=2^20 "
-        f"{back_to_back_ms(torch, lambda: S.compress_v(l, r)):.4f} ms, "
+        f"{back_to_back_ms(lambda: S.compress_v(l, r)):.4f} ms, "
         f"mont_mul n=2^21 "
-        f"{back_to_back_ms(torch, lambda: V.mont_mul(a, b)):.4f} ms")
+        f"{back_to_back_ms(lambda: V.mont_mul(a, b)):.4f} ms")
     # PoW (ops/pow.py): one challenge at column stride 0 against a block of
     # 32-bit nonces
     nonces = torch.zeros((16, 1 << 16), dtype=torch.int32, device=dev)
@@ -880,7 +886,7 @@ def phase_segments(torch, rng, rows, dev) -> dict:
         log(f"[3] {kind} n={n} rounds={r}: {perms} permutations, the "
             f"sponge chain's floor {chain_ms:.4f} ms at {per_perm_ms:.5f} ms "
             f"a permutation; 20 launches back to back, per launch "
-            f"{back_to_back_ms(torch, lambda: kernel[kind](*args)):.4f} ms")
+            f"{back_to_back_ms(lambda: kernel[kind](*args)):.4f} ms")
         measured[kind, n, r] = (ms, bound(nbytes, ops, rows.rates)[0],
                                 chain_ms)
         del args
@@ -1014,14 +1020,29 @@ def phase_leaves(torch, rng, rows, dev):
 
 
 def phase_mxu(torch, dev):
-    """experiments/mxu_mont.py: exactness and both kernels' times."""
+    """experiments/mxu_mont.py: exactness and K6's and K1's times at 2^18,
+    2^20 and 2^21; then experiments/mxu_trace.py at 2^21: K6 and its
+    earlier design timed in turns beside K1, and each split by phase from
+    a traced build.  Returns K6's launches in the experiment."""
     from provekit_tpu_torch.experiments import mxu_mont as M
+    from provekit_tpu_torch.experiments import mxu_trace
     M.mont_mul_mma.launches = 0
     out = M.run(dev)
     launches = M.mont_mul_mma.launches
     log(f"[4] mxu_mont experiment: {json.dumps(out)}")
     if not all(out["checks"].values()):
         fail(f"tensor-core experiment checks failed: {out['checks']}")
+    for log_n in M.LOG_NS:
+        mma, cios = out["ms"][f"mma_2^{log_n}"], out["ms"][f"cios_2^{log_n}"]
+        log(f"[4] n=2^{log_n}: mont_mul_mma {mma:.4f} ms, mont_mul "
+            f"{cios:.4f} ms (ratio {mma / cios:.3f})")
+    t0 = time.perf_counter()
+    trace = mxu_trace.run(dev)
+    log(f"[4] mont_mul_mma traced at n=2^21, this design and the earlier "
+        f"one ({time.perf_counter() - t0:.1f} s with their builds): "
+        f"{json.dumps(trace)}")
+    if not all(trace["checks"].values()):
+        fail(f"traced tensor-core kernels disagree: {trace['checks']}")
     return launches
 
 
@@ -2080,6 +2101,8 @@ def main() -> int:
                 p: c[f"{name}_permutations"] for p, c in by_path.items()}
         if name in SEGMENT_KERNELS:
             kernels[-1]["chain_floor_ms"] = row["chain_floor_ms"]
+        if "back_to_back_ms" in row:
+            kernels[-1]["back_to_back_ms"] = row["back_to_back_ms"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

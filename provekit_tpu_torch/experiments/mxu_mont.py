@@ -11,9 +11,10 @@ in torch int64.  Nothing on the prove path calls it.
 
     python -m provekit_tpu_torch.experiments.mxu_mont
 
-checks the kernel against the field formula and ``mont_mul_plain``, and
-times it beside the CIOS kernel (``fields.vector.mont_mul``) at n = 2^18,
-2^20 and 2^21, on the card.  It prints one JSON document.
+checks the kernel against the field formula, its plain version and
+``mont_mul_plain``, and times it beside the CIOS kernel
+(``fields.vector.mont_mul``) at n = 2^18, 2^20 and 2^21, on the card.  It
+prints one JSON document.
 """
 
 from __future__ import annotations
@@ -140,6 +141,31 @@ def random_values(rng: np.random.Generator, count: int) -> list[int]:
             for _ in range(count)]
 
 
+def raw_planes(values, device) -> torch.Tensor:
+    """Iterable of ints below 2^256 -> (16, n) int32 planes, not reduced."""
+    blob = b"".join(v.to_bytes(32, "little") for v in values)
+    arr = np.frombuffer(blob, dtype="<u2").reshape(-1, 16)
+    return torch.from_numpy(
+        np.ascontiguousarray(arr.T).astype(np.int32)).to(device)
+
+
+# 0, 1, 2, P - 2, P - 1, R, R^2 and 2^255 mod P, and 2^256 - 1 (not
+# canonical: a * b nears 2^256 P against P - 1)
+EDGE_VALUES = (0, 1, 2, F.P - 2, F.P - 1, F.R % F.P, F.R * F.R % F.P,
+               (1 << 255) % F.P)
+ALL_ONES = (1 << 256) - 1
+
+
+def edge_operands(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a, b) planes of every pair of EDGE_VALUES, and 2^256 - 1 against
+    each of them in both orders (a * b < 2^256 P in every pair)."""
+    pairs = [(x, y) for x in EDGE_VALUES for y in EDGE_VALUES]
+    pairs += [(ALL_ONES, y) for y in EDGE_VALUES]
+    pairs += [(x, ALL_ONES) for x in EDGE_VALUES]
+    return (raw_planes([x for x, _ in pairs], device),
+            raw_planes([y for _, y in pairs], device))
+
+
 def check(out: torch.Tensor, a_vals: list[int], b_vals: list[int]) -> bool:
     """Whether ``out`` holds a * b * R^-1 mod P, canonical, elementwise."""
     r_inv = pow(F.R, -1, F.P)
@@ -155,8 +181,8 @@ LOG_NS = (18, 20, 21)
 def run(device) -> dict:
     """The experiment on a CUDA ``device``: exactness on 256 random pairs,
     then at each 2^log_n of LOG_NS (the pairs tiled) the kernel against the
-    CIOS kernel and ``mont_mul_plain``, and both kernels' times (median of
-    20 runs)."""
+    CIOS kernel, its plain version and ``mont_mul_plain``, and both
+    kernels' times (median of 20 runs)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("the experiment times kernels on a CUDA card")
@@ -173,6 +199,8 @@ def run(device) -> dict:
         b = b_small.repeat(1, n // 256)
         got = mont_mul_mma(a, b)
         rows["checks"][f"mma_vs_plain_2^{log_n}"] = bool(
+            torch.equal(got, mont_mul_mma_plain(a, b)))
+        rows["checks"][f"mma_vs_mont_mul_plain_2^{log_n}"] = bool(
             torch.equal(got, V.mont_mul_plain(a, b)))
         rows["checks"][f"mma_vs_cios_2^{log_n}"] = bool(
             torch.equal(got, V.mont_mul(a, b)))

@@ -86,3 +86,21 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(fn, reps: int = 20) -> float:
+    """Milliseconds a launch of ``reps`` launches queued back to back
+    between two CUDA events, after one warm-up run: the card does not idle
+    while the host prepares the next launch, as it can before a single
+    timed launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

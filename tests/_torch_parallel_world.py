@@ -1,6 +1,6 @@
 """The ranks of tests/test_torch_parallel.py: worlds of eight and of four
-gloo ranks on the CPU for the sharded functions and ``commit_dev``, and
-the inputs of its proves on four.
+gloo ranks on the CPU for the sharded functions and ``commit_dev`` (and
+on four the tiny system's prove), and the inputs of its proves on four.
 
 This module imports no JAX: the spawned ranks import it by name.
 """
@@ -26,13 +26,15 @@ LARGE = (5, LARGE_MULTS, 10, 2, 2, 3)
 
 def step_rank(mesh) -> dict:
     """The sharded functions and ``commit_dev`` on a mesh of eight ranks or
-    of four (and on four also at n = 2^12)."""
+    of four; on four also the functions at n = 2^12 and the tiny system's
+    prove (its record, ``dryrun.prove_timed``)."""
     s = mesh.size
     out = {f"s{s}": D.check_sharded(mesh, SEED, D.step_shapes(s), keep=True),
            f"commit{s}": D.check_commit(mesh, SEED, {4: COMMIT_CASES_4,
                                                      8: COMMIT_CASES_8}[s])}
     if s == 4:
         out["s4_wide"] = D.check_sharded(mesh, SEED, WIDE)
+        out["tiny_prove"] = D.prove_example(mesh, *TINY, base=False)["mesh"]
     try:                      # a mesh is the whole group, never a part
         make_mesh(s // 2, device="cpu")
     except ValueError as e:

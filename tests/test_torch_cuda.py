@@ -77,15 +77,33 @@ def test_butterfly_route_on_card(cuda):
     assert ntt.butterfly.launches == before + 13
 
 
-def test_mont_mul_mma_kernel(cuda):
-    a, b = canonical(4096 + 37, 11, cuda), canonical(4096 + 37, 12, cuda)
-    a[:, :4] = V.pack([0, 1, F.P - 1, F.R], cuda)
-    b[:, :4] = V.pack([F.P - 1] * 4, cuda)
+@pytest.mark.parametrize("n", [1, 3, 64, 4096 + 37, 1 << 16])
+def test_mont_mul_mma_kernel(cuda, n):
+    a, b = canonical(n, 11, cuda), canonical(n, 12, cuda)
+    k = min(n, 4)
+    a[:, :k] = V.pack([0, 1, F.P - 1, F.R][:k], cuda)
+    b[:, :k] = V.pack([F.P - 1] * k, cuda)
     before = M.mont_mul_mma.launches
     got = M.mont_mul_mma(a, b)
     assert torch.equal(got, V.mont_mul_plain(a, b))
     assert torch.equal(got, M.mont_mul_mma_plain(a, b))
     assert M.mont_mul_mma.launches == before + 1
+
+
+def test_mont_mul_mma_kernel_edges_and_layouts(cuda):
+    a, b = M.edge_operands(cuda)
+    assert torch.equal(M.mont_mul_mma(a, b), M.mont_mul_mma_plain(a, b))
+    # a strided view, made contiguous by the wrapper
+    x, y = canonical(2 * 4096, 13, cuda), canonical(4096, 14, cuda)
+    assert torch.equal(M.mont_mul_mma(x[:, 0::2], y),
+                       M.mont_mul_mma_plain(x[:, 0::2], y))
+    # n % 4 == 0 on a base 4 bytes past 16-byte alignment: the plain fill
+    flat = torch.empty(16 * 256 + 1, dtype=torch.int32, device=cuda)
+    odd = flat[1:].view(16, 256)
+    odd.copy_(canonical(256, 15, cuda))
+    assert odd.data_ptr() % 16 == 4
+    assert torch.equal(M.mont_mul_mma(odd, y[:, :256]),
+                       M.mont_mul_mma_plain(odd, y[:, :256]))
 
 
 def test_rs_encode_kernel_path(cuda):

@@ -5,16 +5,17 @@ Two worlds, of eight ranks and of four (``tests/_torch_parallel_world.py``),
 run the six sharded functions on 8 ranks and on 4 (the shapes of
 ``tests/test_sharding.py``, n = 64, and each at n = 2^12 against its
 single-device counterpart in the rank) and ``commit_dev`` under a mesh
-with 1, 2 and many leaves a rank, once per pytest run: the suite's
-workers share its results through a file under pytest's base temporary
-directory, whichever worker asks first.  Each of those tests then compares
-with the JAX package (``provekit_tpu.parallel``'s sharded functions on a
-mesh of the conftest's CPU devices).  The three proves on four ranks each
-launch their own ranks, so that the workers that run them do not wait on
-one another: the tiny system (the pinned digest of
-``tests/test_device_fs.py``), the 24-step system with the inputs of
-``tests/_sharded_prove_child.py``, and a system whose sumchecks hold 2^10
-or more elements a rank, each against the port's single-device proof.
+with 1, 2 and many leaves a rank, and the four ranks prove the tiny
+system (the pinned digest of ``tests/test_device_fs.py``), once per pytest
+run: both worlds run at once, and the suite's workers share their results
+through a file under pytest's base temporary directory, whichever worker
+asks first.  Each of those tests then compares with the JAX package
+(``provekit_tpu.parallel``'s sharded functions on a mesh of the conftest's
+CPU devices).  The two larger proves on four ranks each launch their own
+ranks, so that the workers that run them do not wait on one another: the
+24-step system with the inputs of ``tests/_sharded_prove_child.py``, and a
+system whose sumchecks hold 2^10 or more elements a rank, each against the
+port's single-device proof.
 """
 
 import hashlib
@@ -50,9 +51,9 @@ FUNCTIONS = ["spartan_round_sharded", "fold_msb_sharded",
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """The step worlds' results (``_torch_parallel_world.step_rank`` on
-    eight ranks and on four), computed by the first worker that asks and
-    read back by the others (pytest-xdist's recipe for a fixture that runs
-    once)."""
+    eight ranks and on four, both worlds at once), computed by the first
+    worker that asks and read back by the others (pytest-xdist's recipe for
+    a fixture that runs once)."""
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         root = root.parent
@@ -60,16 +61,30 @@ def world(tmp_path_factory):
     with FileLock(str(path) + ".lock"):
         if path.exists():
             return pickle.loads(path.read_bytes())
-        out = {s: launch(W.step_rank, s, "gloo", device="cpu", timeout=600)
-               for s in (8, 4)}
+        out, errors = {}, []
+
+        def run(s):
+            try:
+                out[s] = launch(W.step_rank, s, "gloo", device="cpu",
+                                timeout=600)
+            except BaseException as e:  # re-raised below, in this thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(s,)) for s in (8, 4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
         path.write_bytes(pickle.dumps(out))
         return out
 
 
-def _prove_on_four(case: tuple, base: bool) -> tuple:
+def _prove_on_four(case: tuple) -> tuple:
     """``dryrun.prove_example`` of ``case`` (seed, n_mults, security,
-    folding, max_pow, rng seed) on four gloo ranks, and with ``base`` the
-    port's single-device proof of it, made here meanwhile."""
+    folding, max_pow, rng seed) on four gloo ranks, and the port's
+    single-device proof of it, made here meanwhile."""
     ranks = {}
 
     def spawn():
@@ -81,12 +96,10 @@ def _prove_on_four(case: tuple, base: bool) -> tuple:
 
     thread = threading.Thread(target=spawn)
     thread.start()
-    single = None
-    if base:
-        seed, n, sec, fold, pow_, rng_seed = case
-        r1cs, witness = examples.build_system(seed, n)
-        scheme = examples.tiny_scheme(r1cs, "cpu", sec, fold, pow_)
-        single = scheme.prove(r1cs, witness, rng=random.Random(rng_seed))
+    seed, n, sec, fold, pow_, rng_seed = case
+    r1cs, witness = examples.build_system(seed, n)
+    scheme = examples.tiny_scheme(r1cs, "cpu", sec, fold, pow_)
+    single = scheme.prove(r1cs, witness, rng=random.Random(rng_seed))
     thread.join()
     if "error" in ranks:
         raise ranks["error"]
@@ -234,11 +247,11 @@ def _scheme(case: tuple):
     return examples.tiny_scheme(r1cs, "cpu", sec, fold, pow_)
 
 
-def test_four_ranks_prove_the_pinned_digest():
+def test_four_ranks_prove_the_pinned_digest(world):
     """Every rank's proof has the pinned digest; every rank counted the
     collectives that the smoke run's model gives for the scheme's shape,
     and launched no sumcheck segment."""
-    ranks, _ = _prove_on_four(W.TINY, base=False)
+    ranks = _ranks(world, "tiny_prove", 4)
     for r in ranks:
         assert r["sha256"] == PINNED
     assert C.mesh_prove_faults(ranks, _scheme(W.TINY), 4) == []
@@ -249,7 +262,7 @@ def test_four_ranks_prove_the_single_device_bytes():
     2 under Random(3), as tests/_sharded_prove_child.py proves it: every
     rank's bytes are the single-device proof's, and they verify (in the
     ranks, and here)."""
-    ranks, base = _prove_on_four(W.MULTS24, base=True)
+    ranks, base = _prove_on_four(W.MULTS24)
     assert all(r["proof"] == base for r in ranks)
     assert C.mesh_prove_faults(ranks, _scheme(W.MULTS24), 4) == []
     r1cs, _ = examples.build_system(5, 24)
@@ -266,7 +279,7 @@ def test_four_ranks_prove_a_large_system():
     assert (1 << scheme.m_0) // 4 >= 1 << 10
     assert (1 << scheme.m) // 4 >= 1 << 10
     assert leaves // 4 >= 4
-    ranks, base = _prove_on_four(W.LARGE, base=True)
+    ranks, base = _prove_on_four(W.LARGE)
     for r in ranks:
         assert r["proof"] == base
     assert C.mesh_prove_faults(ranks, scheme, 4) == []
