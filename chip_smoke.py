@@ -8,17 +8,25 @@ Phases, one or more lines each:
      torch, CUDA, nvcc, g++);
   2. build of the CUDA kernels from provekit_tpu_torch/csrc (one nvcc per
      source, in parallel), with its time and what ptxas reports of the
-     Skyscraper, segment and tensor-core Montgomery kernels (registers,
-     spills); it fails if either segment kernel spills.  Beside them, g++
-     builds the port's two host libraries from provekit_tpu_torch/native
+     Skyscraper, segment, tensor-core Montgomery and NTT pass kernels
+     (registers, spills); it fails if either segment kernel spills.  Beside
+     them, g++ builds the port's two host libraries from
+     provekit_tpu_torch/native
      (native/build.py: the curve engine, and the host library of the
      witness solve, the host sponge's permutation, Merkle path and PoW
      checks), with their time;
   3. each kernel against its plain torch version on the card at the shapes
      its path gives it: exact equality, both times (CUDA events, median) and
-     the kernel's bound.  The butterfly runs at the sha256 x100 path's shape
-     (16, 2^25), beside the fused stage on the same stage, and the whole
-     2^24 -> 2^25 Reed-Solomon encoding runs with the kernels; mont_mul,
+     the kernel's bound.  The NTT's pass kernel (csrc/ntt_stage.cu) runs one
+     stage a launch on K3's route at 2^21 and on K2's at the sha256 x100
+     path's (16, 2^25) stages; the encodes of every size 2^1 .. 2^22 and
+     the inverse transforms, with edge values, against the plain transform;
+     then the paths' RS domains 2^21, 2^24 and 2^25: the encode against
+     the plain one and through the stage-by-stage path, the launches of one
+     encode and the device kernels it runs, and each pass of its plan
+     against its plain version (one launch, back to back, its bound), a row
+     a pass in the kernel JSON (K3's and K2's rows: their route's first
+     pass on poseidon2 x1000's and sha256 x100's path); mont_mul,
      compress and the leaf fold run at the largest leaf shapes of that
      path's commitment; the tensor-core Montgomery product runs at 2^21
      beside the CIOS kernel, and at n = 1, 3, 64 and 4133 and on edge
@@ -113,6 +121,7 @@ failure exits non-zero before them.  The script needs a CUDA card and the
 repository beside it; it imports no JAX.
 """
 
+import collections
 import contextlib
 import hashlib
 import json
@@ -159,9 +168,14 @@ MONT_SQR_MULADDS = 2 * (36 + 64) + 8
 LADDER_SQUARES = 14
 PLANE_BYTES = 64  # one field element: 16 digit planes of int32
 FUSED_PY = "provekit_tpu/ops/fused.py"
-# the kernels every prove of phases 6-9 launches (sha256 x100 adds K2)
-ON_PATH = ["mont_mul", "ntt_stage", "compress", "compress_fold", "duplex",
-           *SEGMENT_KERNELS]
+# the kernels every prove of phases 6-9 launches (sha256 x100 adds K2's
+# route of the NTT's passes)
+ON_PATH = ["mont_mul", "ntt_pass", "ntt_stage", "compress", "compress_fold",
+           "duplex", *SEGMENT_KERNELS]
+# the RS domain of each path's witness commitment: its passes' rows
+NTT_PATHS = {21: "poseidon2_x1000", 24: "passport_cli", 25: "sha256_x100"}
+# phase 3 holds the NTT of every size up to 2^this to its plain version
+NTT_CHECK_MAX_LOG = 23
 
 
 def log(msg: str) -> None:
@@ -196,6 +210,14 @@ def bound(nbytes: float, ops: dict, rates: dict) -> tuple[float, str]:
         times[f"operations ({unit})"] = count / rates[unit] * 1e3
     by = max(times, key=times.get)
     return times[by], "bytes" if by == "bytes" else "operations"
+
+
+def path_counts(counters) -> dict:
+    """read_counts, with the NTT passes' launches by geometry
+    (``ntt_pass.shapes``)."""
+    out = read_counts(counters)
+    out["ntt_pass_shapes"] = dict(counters["ntt_pass"].shapes)
+    return out
 
 
 def fixture_cases() -> dict:
@@ -386,7 +408,8 @@ def phase_build():
     log("[2] host libraries built with g++ beside them: "
         + ", ".join(f"{name} ({path}) in {sec:.3f} s"
                     for name, (path, sec) in host.items()))
-    for src in ("skyscraper.cu", "sumcheck_segment.cu", "mont_mul_mma.cu"):
+    for src in ("skyscraper.cu", "sumcheck_segment.cu", "mont_mul_mma.cu",
+                "ntt_stage.cu"):
         for line in reports.get(src, "").splitlines():
             if "ptxas info" in line or "spill" in line:
                 log(f"[2] {src} {line.strip()}")
@@ -446,28 +469,22 @@ def phase_kernels(torch, dev, rates):
                ops=mont_mul_ops(n),
                source="mont_mul.cu", replaces=f"{TPU_KERNELS}:74")
 
+    # one stage a launch (the k = 1 pass of ntt_stage, K3's earlier shape)
+    stage_ms = {}
     for chunk in (1, 1024, 2048):
         tw = ntt._twiddle_table((n // chunk).bit_length() - 1, False, dev)
         s = 1
-        extra = {}
+        steps = n // (2 * chunk)
+        ms = cuda_ms(lambda: ntt.ntt_stage(a, tw, s, chunk), 20)
         if chunk == 1024:
-            steps = n // (2 * chunk)
-            extra = dict(nbytes=2 * PLANE_BYTES * n
-                         + PLANE_BYTES * (((steps - 1) >> s) + 1),
-                         ops=mont_mul_ops(n // 2),
-                         source="ntt_stage.cu",
-                         replaces=f"{TPU_KERNELS}:174")
-        rows.check("ntt_stage", f"n=2^21 chunk={chunk} s={s}",
+            stage_ms["ntt_stage"] = ms
+        rows.check("ntt_stage", f"n=2^21 chunk={chunk} s={s} (k = 1)",
                    ntt.ntt_stage(a, tw, s, chunk),
-                   ntt.ntt_stage_plain(a, tw, s, chunk),
-                   cuda_ms(lambda: ntt.ntt_stage(a, tw, s, chunk), 20),
+                   ntt.ntt_stage_plain(a, tw, s, chunk), ms,
                    cuda_ms(lambda: ntt.ntt_stage_plain(a, tw, s, chunk), 3),
-                   **extra)
-    coeffs = a[:, :n // 2].contiguous()
-    rows.check("rs_encode", "2^20 -> 2^21", ntt.rs_encode(coeffs, 21),
-               ntt.rs_encode(coeffs, 21, plain=True),
-               cuda_ms(lambda: ntt.rs_encode(coeffs, 21), 10),
-               cuda_ms(lambda: ntt.rs_encode(coeffs, 21, plain=True), 3))
+                   nbytes=2 * PLANE_BYTES * n
+                   + PLANE_BYTES * (((steps - 1) >> s) + 1),
+                   ops=mont_mul_ops(n // 2), record=False)
 
     # the tensor-core Montgomery product at K1's shape, beside K1
     rows.check("mont_mul_mma", "n=2^21 against mont_mul_plain",
@@ -504,11 +521,10 @@ def phase_kernels(torch, dev, rates):
     phase_host_hash(torch, dev)
     segments = phase_segments(torch, rng, rows, dev)
     phase_poseidon_leaves(torch, rng, rows, dev)
-    del a, b, coeffs
+    del a, b
 
-    # the butterfly at the sha256 x100 path's second-pass stages: (16, 2^25),
-    # chunk 8192 (n1 = 2^13), half 2^24; and the fused stage on the same
-    # stages for comparison
+    # one stage a launch at the sha256 x100 path's phase-2 stages (16, 2^25),
+    # chunk 8192 (n1 = 2^13), half 2^24, on K2's route; and on K3's
     n = 1 << 25
     chunk = 1 << 13
     x = random_planes(torch, rng, n, dev)
@@ -517,46 +533,134 @@ def phase_kernels(torch, dev, rates):
     for s in (0, 11):
         want, plain_ms = timed_once(
             torch, lambda: ntt.ntt_stage_plain(x, tw, s, chunk))
-        extra = {}
+        ms = cuda_ms(lambda: ntt.butterfly(x, tw, s, chunk), 10)
         if s == 0:
-            extra = dict(nbytes=2 * PLANE_BYTES * n
-                         + PLANE_BYTES * (((steps - 1) >> s) + 1),
-                         ops=mont_mul_ops(n // 2),
-                         source="ntt_stage.cu",
-                         replaces=f"{TPU_KERNELS}:113")
-        rows.check("butterfly", f"n=2^25 chunk=8192 s={s}",
-                   ntt.butterfly(x, tw, s, chunk), want,
-                   cuda_ms(lambda: ntt.butterfly(x, tw, s, chunk), 10),
-                   plain_ms, **extra)
+            stage_ms["butterfly"] = ms
+        rows.check("butterfly", f"n=2^25 chunk=8192 s={s} (k = 1)",
+                   ntt.butterfly(x, tw, s, chunk), want, ms, plain_ms,
+                   nbytes=2 * PLANE_BYTES * n
+                   + PLANE_BYTES * (((steps - 1) >> s) + 1),
+                   ops=mont_mul_ops(n // 2), record=False)
         del want
-        rows.check("ntt_stage", f"n=2^25 chunk=8192 s={s}",
+        rows.check("ntt_stage", f"n=2^25 chunk=8192 s={s} (k = 1)",
                    ntt.ntt_stage(x, tw, s, chunk),
                    ntt.butterfly(x, tw, s, chunk))
-        log(f"[3] butterfly beside ntt_stage on that stage: "
-            f"{cuda_ms(lambda: ntt.butterfly(x, tw, s, chunk), 10):.4f} ms "
-            f"against {cuda_ms(lambda: ntt.ntt_stage(x, tw, s, chunk), 10):.4f}"
-            f" ms")
-    phase_leaves(torch, rng, rows, dev)
-    coeffs = x[:, :n // 2].contiguous()
     del x
-    torch.cuda.reset_peak_memory_stats(dev)
-    before = torch.cuda.memory_allocated(dev)
-    table = ntt._cross_twiddles(25, 13, False, dev)
-    build_gib = (torch.cuda.max_memory_allocated(dev) - before) / 2**30
-    log(f"[3] cross-twiddle table of 2^25: {table.numel() * 4 / 2**30:.3f} "
-        f"GiB cached, {build_gib:.3f} GiB at the peak of its build")
-    del table
-    want, plain_ms = timed_once(
-        torch, lambda: ntt.rs_encode(coeffs, 25, plain=True))
-    rows.check("rs_encode", "2^24 -> 2^25", ntt.rs_encode(coeffs, 25), want,
-               cuda_ms(lambda: ntt.rs_encode(coeffs, 25), 3), plain_ms)
-    del coeffs, want
-    # drop the 2^25 twiddle tables (2 GiB of cross twiddles) so that the
-    # paths' peak memory counts only what each prove holds
-    for cached in (ntt._twiddle_table, ntt._cross_twiddles):
+    phase_leaves(torch, rng, rows, dev)
+    phase_ntt(torch, rng, rows, dev, stage_ms)
+    return rows.rows, segments
+
+
+def phase_ntt(torch, rng, rows, dev, stage_ms) -> None:
+    """The NTT on the pass kernel: every size 2^1 .. 2^22 forward (on half
+    as many coefficients: the zero padding) and inverse, and the edge
+    values, against the plain transform; then the paths' RS domains 2^21,
+    2^24 and 2^25: the encode against the plain one, each pass against its
+    plain version (one launch, back to back, its bound), the launches of
+    one encode and the device kernels the profiler sees it run.  Records a
+    row a pass and the K3 and K2 rows (their route's main-path pass, with
+    the one-stage times of ``stage_ms``)."""
+    from provekit_tpu_torch.fields import bn254 as F
+    from provekit_tpu_torch.fields import vector as V
+    from provekit_tpu_torch.ops import ntt
+    from provekit_tpu_torch.utils.profiling import cuda_ms, device_kernels
+
+    for log_n in range(1, NTT_CHECK_MAX_LOG + 1):
+        n = 1 << log_n
+        x = random_planes(torch, rng, n, dev)
+        if log_n in (2, 13, 21):
+            x[:, :3 * (n // 4)] = V.pack([0, 1, F.P - 1], dev).repeat(
+                1, n)[:, :3 * (n // 4)]
+        half = x[:, :max(1, n // 2)].contiguous()
+        for what, got, want in (
+                ("rs_encode", lambda: ntt.rs_encode(half, log_n),
+                 lambda: ntt.rs_encode(half, log_n, plain=True)),
+                ("intt", lambda: ntt.intt(x),
+                 lambda: ntt._ntt_core(x, log_n, True, plain=True))):
+            err = max_abs_err(torch, got(), want())
+            if err:
+                fail(f"{what} at 2^{log_n} differs from its plain version")
+    log(f"[3] rs_encode (2^(k-1) -> 2^k) and intt at 2^1 .. "
+        f"2^{NTT_CHECK_MAX_LOG} equal their plain versions (edge values 0, "
+        f"1, P - 1 at 2^2, 2^13, 2^21)")
+
+    for log_n, path in NTT_PATHS.items():
+        n = 1 << log_n
+        coeffs = random_planes(torch, rng, n // 2, dev)
+        want, plain_ms = timed_once(
+            torch, lambda: ntt.rs_encode(coeffs, log_n, plain=True))
+        passes = ntt.plan(log_n)
+        tables = ntt.scale_tables(log_n, False, dev)
+        products = sum(ntt.pass_work(p, n // 2)[1] for p in passes)
+        before = ntt.ntt_pass.launches
+        got = ntt.rs_encode(coeffs, log_n)
+        launches = ntt.ntt_pass.launches - before
+        ms = cuda_ms(lambda: ntt.rs_encode(coeffs, log_n), 10)
+        b2b = back_to_back_ms(lambda: ntt.rs_encode(coeffs, log_n))
+        rows.check("rs_encode", f"2^{log_n - 1} -> 2^{log_n}", got, want, ms,
+                   plain_ms, nbytes=PLANE_BYTES * (n // 2 + n),
+                   ops=mont_mul_ops(products), record=False)
+        bound_ms, bound_by = bound(PLANE_BYTES * (n // 2 + n),
+                                   mont_mul_ops(products), rows.rates)
+        # the profiler's record of one encode: every kernel a pass, every
+        # route of the plan seen, no more records than passes (in this
+        # process it has lost one of the 2^25 encode's phase-1 records in
+        # every window, PERF.md section 7; the launch count is the wrapper's)
+        kernels = device_kernels(lambda: ntt.rs_encode(coeffs, log_n))
+        seen = collections.Counter(kernels)
+        routes = {f"ntt_pass_kernel<{ntt.ROUTES.index(p.route)},"
+                  for p in passes}
+        log(f"[3] rs_encode 2^{log_n - 1} -> 2^{log_n}: {launches} launches "
+            f"of pk_ntt_pass ({', '.join(str(p.k) for p in passes)} stages),"
+            f" {ms:.4f} ms, back to back {b2b:.4f} ms; the transform's bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {products} products); device "
+            f"kernels of one encode: {dict(seen)}")
+        if launches != len(passes) or len(kernels) > len(passes) or any(
+                "ntt_pass_kernel" not in k for k in kernels) or {
+                r for r in routes if not any(r in k for k in kernels)}:
+            fail(f"rs_encode at 2^{log_n}: {launches} launches, kernels "
+                 f"{dict(seen)}, for a plan of {len(passes)} passes")
+        del got, want
+        xin, in_len = coeffs, n // 2
+        for i, p in enumerate(passes):
+            tw = ntt.pass_twiddles(p, False, dev)
+            out = ntt._launch(p, xin, tw, tables)
+            want, pass_plain_ms = timed_once(
+                torch, lambda: ntt.pass_plain(p, xin, tw, tables))
+            nbytes, count = ntt.pass_work(p, in_len)
+            key = f"ntt_pass 2^{log_n} {i + 1}/{len(passes)}"
+            rows.check(key, p.key, out, want,
+                       cuda_ms(lambda: ntt._launch(p, xin, tw, tables), 10),
+                       pass_plain_ms, nbytes=nbytes, ops=mont_mul_ops(count),
+                       kernel="ntt_pass", geometry=p.key, path=path,
+                       route_of=p.route, source="ntt_stage.cu",
+                       replaces=f"{TPU_KERNELS}:"
+                       + ("113" if p.route == "butterfly" else "174"),
+                       back_to_back_ms=back_to_back_ms(
+                           lambda: ntt._launch(p, xin, tw, tables)),
+                       transform_ms=ms, transform_back_to_back_ms=b2b,
+                       transform_bound_ms=bound_ms, transform_plain_ms=plain_ms)
+            del want
+            xin, in_len = out, p.n
+        del xin, out, coeffs
+        torch.cuda.empty_cache()
+    # the K3 and K2 rows: the first pass of each route on its path, beside
+    # the one-stage launch of that route (k = 1)
+    for name, path in (("ntt_stage", "poseidon2_x1000"),
+                       ("butterfly", "sha256_x100")):
+        key = next(k for k, r in rows.rows.items()
+                   if r.get("path") == path and r.get("route_of") == name)
+        row = dict(rows.rows[key], stage_ms=stage_ms[name])
+        for k in ("kernel", "geometry", "path"):
+            row.pop(k)
+        rows.rows[name] = row
+    # the plain transform's cached tables (2 GiB of cross twiddles at
+    # 2^25), so that the paths' peak memory counts only what each prove
+    # holds
+    for cached in (ntt._twiddle_table, ntt._twiddle_packed,
+                   ntt._cross_twiddles, ntt.scale_tables, ntt._bitrev_index):
         cached.cache_clear()
     torch.cuda.empty_cache()
-    return rows.rows, segments
 
 
 def phase_skyscraper(torch, rows, dev, a, b):
@@ -1110,6 +1214,12 @@ def profile_prove(torch, whir, r1cs, witness, path, tag) -> dict:
                      sum(e.count for e in hits))
     sky_us = sum(us for us, _ in sky.values())
     duplex_us = sky["duplex_kernel"][0]
+    ntt_routes = {}
+    for route, mark in (("K3", "ntt_pass_kernel<0"),
+                        ("K2", "ntt_pass_kernel<1")):
+        hits = [e for e in cuda if mark in e.key]
+        ntt_routes[route] = (sum(e.self_device_time_total for e in hits),
+                             sum(e.count for e in hits))
     summary = (f"profiled prove: wall {wall:.3f} s, device busy "
                f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}%), "
                f"{launches} device kernels; Skyscraper ladder kernels "
@@ -1118,7 +1228,11 @@ def profile_prove(torch, whir, r1cs, witness, path, tag) -> dict:
                + ", ".join(f"{k} {us / 1e3:.3f} ms in {c}"
                            for k, (us, c) in sky.items())
                + f"; duplex {perms} permutations, "
-               f"{duplex_us / max(perms, 1):.2f} us of device time each")
+               f"{duplex_us / max(perms, 1):.2f} us of device time each; "
+               f"NTT passes "
+               f"{sum(us for us, _ in ntt_routes.values()) / 1e3:.3f} ms: "
+               + ", ".join(f"{r}'s route {us / 1e3:.3f} ms in {c}"
+                           for r, (us, c) in ntt_routes.items()))
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(summary + "\n\n" + events.table(
         sort_by="self_cuda_time_total", row_limit=40))
@@ -1290,7 +1404,7 @@ def prove_path(torch, dev, tag, name, build, counters, expect, segments,
         torch.cuda.reset_peak_memory_stats(dev)
         reset_counts(counters)
         proof = stage(label, prove)
-        launches = read_counts(counters)
+        launches = path_counts(counters)
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         spans = {s.name: s.elapsed
                  for s in profiling.GLOBAL.root.children[mark:]}
@@ -1555,7 +1669,7 @@ def phase_front_door(torch, dev, counters, segments, out_dir):
         with recorded_segments() as calls, recorded_solves() as solves:
             cli_step("passport", ["prove", str(nps), str(witness), "-o",
                                   str(np_), "--verify"], "passport_prove")
-        launches = read_counts(counters)
+        launches = path_counts(counters)
         check_segments("[8] passport", calls, segments)
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         if "self-verify: OK" not in (work / "passport_prove.txt").read_text():
@@ -1742,7 +1856,7 @@ def phase_recursion(counters, segments, work) -> dict:
     with recorded_segments() as calls:
         run_cli(["prove", str(nps), str(toml), "-o", str(np_)],
                 work / "mul_chain_prove.txt")
-    launches = read_counts(counters)
+    launches = path_counts(counters)
     check_segments("[9] mul_chain", calls, segments)
     log(f"[9] mul_chain at security {RECURSION_SECURITY}: prepare and "
         f"prove through the CLI in {time.perf_counter() - t0:.3f} s; "
@@ -2036,6 +2150,45 @@ def phase_mesh(torch, dev, poseidon) -> dict:
     return recs[0]["launches"]
 
 
+def kernel_rows(rows: dict, by_path: dict, mxu_launches: int) -> list:
+    """The kernel JSON's rows: phase 3's rows with each kernel's launches
+    on each path (``by_path``: a path's counts), the launches of its
+    main path in ``launches``."""
+    kernels = []
+    for key, row in rows.items():
+        name = row.get("kernel", key)
+        if name == "mont_mul_mma":
+            launches, per_path = mxu_launches, {"mxu_mont": mxu_launches}
+        elif "geometry" in row:  # a pass of the NTT: its geometry's launches
+            per_path = {p: c.get("ntt_pass_shapes", {}).get(
+                row["geometry"], 0) for p, c in by_path.items()}
+            launches = per_path[row["path"]]
+        else:
+            per_path = {p: c[name] for p, c in by_path.items()}
+            path = "sha256_x100" if name == "butterfly" else "poseidon2_x1000"
+            launches = per_path[path]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"provekit_tpu_torch/csrc/{row['source']}",
+            "replaces": row["replaces"], "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "shape": row["shape"], "launches_by_path": per_path})
+        if name == "duplex" or name in SEGMENT_KERNELS:
+            kernels[-1]["permutations_by_path"] = {
+                p: c[f"{name}_permutations"] for p, c in by_path.items()}
+        if name in SEGMENT_KERNELS:
+            kernels[-1]["chain_floor_ms"] = row["chain_floor_ms"]
+        for extra in ("back_to_back_ms", "stage_ms", "transform_ms",
+                      "transform_back_to_back_ms",
+                      "transform_bound_ms",
+                      "transform_plain_ms"):
+            if extra in row:
+                kernels[-1][extra] = row[extra]
+    return kernels
+
+
 def main() -> int:
     from pathlib import Path
     import torch
@@ -2080,29 +2233,7 @@ def main() -> int:
     del poseidon_export
     log(f"total {time.perf_counter() - T0:.3f} s")
 
-    kernels = []
-    for name, row in rows.items():
-        if name == "mont_mul_mma":
-            launches, per_path = mxu_launches, {"mxu_mont": mxu_launches}
-        else:
-            per_path = {p: c[name] for p, c in by_path.items()}
-            path = "sha256_x100" if name == "butterfly" else "poseidon2_x1000"
-            launches = per_path[path]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"provekit_tpu_torch/csrc/{row['source']}",
-            "replaces": row["replaces"], "launches": launches,
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
-            "shape": row["shape"], "launches_by_path": per_path})
-        if name == "duplex" or name in SEGMENT_KERNELS:
-            kernels[-1]["permutations_by_path"] = {
-                p: c[f"{name}_permutations"] for p, c in by_path.items()}
-        if name in SEGMENT_KERNELS:
-            kernels[-1]["chain_floor_ms"] = row["chain_floor_ms"]
-        if "back_to_back_ms" in row:
-            kernels[-1]["back_to_back_ms"] = row["back_to_back_ms"]
+    kernels = kernel_rows(rows, by_path, mxu_launches)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

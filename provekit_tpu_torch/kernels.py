@@ -37,8 +37,7 @@ SIGNATURES = {
     "mont_mul.cu": {
         "pk_mont_mul": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P]},
     "ntt_stage.cu": {
-        "pk_ntt_stage": [_P, _P, _I64, _P, _I64, _I32, _I32, _P],
-        "pk_butterfly": [_P, _P, _I64, _P, _I64, _I32, _I32, _P]},
+        "pk_ntt_pass": [_P, _P, _P, _I64, _P, _P, _I64, *[_I32] * 9, _P]},
     "skyscraper.cu": {
         "pk_compress": [_P, _I64, _I64, _P, _I64, _I64, _P, _I64, _P],
         "pk_compress_fold": [_P, _I32, _I64, _I64, _I64, _P, _I64, _P],

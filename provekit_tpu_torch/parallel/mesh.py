@@ -57,13 +57,12 @@ def fold_lsb_sharded(mesh, x, alpha):
 
 def _ntt_columns(x: torch.Tensor, log_m: int, chunk: int) -> torch.Tensor:
     """NTT along the major axis of (16, m * chunk), each of the ``chunk``
-    minor columns a transform, on ``ntt_stage`` (K3) whatever the chunk."""
-    dev = x.device
-    tw = ntt_mod._twiddle_table(log_m, False, dev)
-    for s in range(log_m):
-        x = ntt_mod.ntt_stage(x, tw, s, chunk)
-    rev = ntt_mod._bitrev_index(log_m, dev)
-    return x.reshape(16, 1 << log_m, chunk)[:, rev].reshape(16, -1)
+    minor columns a transform: every stage and the bit-reversal in one
+    pass (``ntt_pass``)."""
+    if log_m == 0:
+        return x
+    tw = ntt_mod._twiddle_table(log_m, False, x.device)
+    return ntt_mod.ntt_pass(x, tw, 0, log_m, chunk, bitrev=True)
 
 
 def ntt_sharded(mesh, x, log_n: int):

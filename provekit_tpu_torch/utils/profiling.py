@@ -104,3 +104,32 @@ def back_to_back_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, windows: int = 3) -> list[str]:
+    """The names of the device kernels that torch.profiler records while
+    ``fn()`` runs, one a launch, in the order they started: of ``windows``
+    windows of CUDA activity, the one that recorded the most.
+
+    On the H100 a window has now and then lost one kernel's record (every
+    launch counted by its wrapper, the work's time unchanged), so each
+    window also leaves the card idle for 50 ms before ``fn()`` and after
+    it, and a lost record can only make a window shorter."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    best = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if len(events) > len(best):
+            best = [e.name for e in events]
+    return best

@@ -18,6 +18,7 @@ from provekit_tpu_torch.fields import bn254 as F
 from provekit_tpu_torch.fields import vector as V
 from provekit_tpu_torch.hash import skyscraper as S
 from provekit_tpu_torch.ops import ntt
+from provekit_tpu_torch.utils.profiling import device_kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -70,11 +71,93 @@ def test_butterfly_kernel(cuda, chunk):
 
 
 def test_butterfly_route_on_card(cuda):
-    # 2^13: both four-step passes (chunks 64 and 128) take the butterfly
+    # 2^13: both four-step phases (chunks 64 and 128) take the butterfly's
+    # route, one pass each, 13 stages
     x = canonical(1 << 13, 8, cuda)
-    before = ntt.butterfly.launches
+    before = ntt.butterfly.launches, ntt.ntt_pass.stages
     assert torch.equal(ntt.ntt(x), ntt._ntt_core(x, 13, False, plain=True))
-    assert ntt.butterfly.launches == before + 13
+    assert ntt.butterfly.launches == before[0] + 2
+    assert ntt.ntt_pass.stages == before[1] + 13
+
+
+def pass_input(p, x: torch.Tensor) -> torch.Tensor:
+    """The operand of a pass of a plan: planes, or packed limbs in the
+    pass's input layout."""
+    return ntt.pack_limbs(x) if p.flags & ntt.IN_PACKED else x
+
+
+def test_ntt_pass_kernel_at_path_shapes(cuda):
+    """Every pass of the transforms the paths run at 2^21 (poseidon2
+    x1000), 2^24 (passport) and 2^25 (sha256 x100), forward and inverse,
+    against its plain version; the first pass on a half-size input (the
+    zero padding); ntt_pass's own launches (planes in and out, and the
+    last stages stored bit-reversed)."""
+    for log_n in (21, 24, 25):
+        n = 1 << log_n
+        x = canonical(n, 20 + log_n, cuda)
+        for inverse in (False, True):
+            tables = ntt.scale_tables(log_n, inverse, cuda)
+            for i, p in enumerate(ntt.plan(log_n, inverse)):
+                tw = ntt.pass_twiddles(p, inverse, cuda)
+                xin = x[:, :n // 2] if i == 0 else pass_input(p, x)
+                got = ntt._launch(p, xin, tw, tables)
+                want = ntt.pass_plain(p, xin, tw, tables)
+                assert torch.equal(got, want), (inverse, p.key)
+                del got, want, xin
+        log_m = log_n // 2
+        tw = ntt._twiddle_table(log_m, False, cuda)
+        chunk = n >> log_m
+        for k in (1, 4, 7):
+            assert torch.equal(ntt.ntt_pass(x, tw, 0, k, chunk),
+                               ntt.ntt_pass_plain(x, tw, 0, k, chunk))
+        # the last stages, stored bit-reversed
+        rev = ntt._bitrev_index(log_m, cuda)
+        want = ntt.ntt_pass_plain(x, tw, log_m - 7, 7, chunk)
+        assert torch.equal(
+            ntt.ntt_pass(x, tw, log_m - 7, 7, chunk, bitrev=True),
+            want.reshape(16, 1 << log_m, chunk)[:, rev].reshape(16, n))
+        del want
+        del x
+        torch.cuda.empty_cache()
+
+
+def test_ntt_pass_edges_and_inverse(cuda):
+    """0, 1 and P - 1 (and random values) through the single-phase and the
+    four-step transforms, both ways; the inverse undoes the forward."""
+    edge = V.pack([0, 1, F.P - 1], cuda)
+    for log_n in (1, 5, 12, 13, 16, 21):
+        n = 1 << log_n
+        x = canonical(n, log_n, cuda)
+        x[:, : n // 2] = edge.repeat(1, n)[:, : n // 2]
+        for inverse in (False, True):
+            want = ntt._ntt_core(x, log_n, inverse, plain=True)
+            assert torch.equal(ntt._ntt_core(x, log_n, inverse), want)
+        assert torch.equal(ntt.intt(ntt.ntt(x)), x)
+        coeffs = x[:, : max(1, n // 4) + 3][:, :n]
+        assert torch.equal(ntt.rs_encode(coeffs, log_n),
+                           ntt.rs_encode(coeffs, log_n, plain=True))
+
+
+def test_ntt_launch_counts(cuda):
+    """A transform is its plan's launches of pk_ntt_pass and nothing else:
+    no gather, transpose, pad or Montgomery product between them; 2^13 in
+    two launches, 2^21 and 2^25 in four."""
+    for log_n, launches in ((13, 2), (21, 4), (25, 4)):
+        coeffs = canonical(1 << (log_n - 1), 30 + log_n, cuda)
+        ntt.rs_encode(coeffs, log_n)  # the tables, built once
+        torch.cuda.synchronize()
+        before = ntt.ntt_pass.launches, V.mont_mul.launches
+        ntt.rs_encode(coeffs, log_n)
+        assert ntt.ntt_pass.launches == before[0] + launches
+        assert V.mont_mul.launches == before[1]
+        # every device kernel the profiler sees in an encode is a pass, of
+        # every route of the plan (it can lose a record: PERF.md section 7)
+        kernels = device_kernels(lambda: ntt.rs_encode(coeffs, log_n))
+        assert all("ntt_pass_kernel" in k for k in kernels), kernels
+        assert 0 < len(kernels) <= launches, kernels
+        for p in ntt.plan(log_n):
+            route = f"ntt_pass_kernel<{ntt.ROUTES.index(p.route)},"
+            assert any(route in k for k in kernels), (p.route, kernels)
 
 
 @pytest.mark.parametrize("n", [1, 3, 64, 4096 + 37, 1 << 16])

@@ -93,11 +93,15 @@ def test_counts_reset_and_read():
 def test_kernel_counters_name_every_entry_point_of_the_path():
     """Every C entry point of ``csrc/`` that launches a kernel of the
     prover has a counter: all but the tensor-core experiment's and the
-    segments' grid query."""
+    segments' grid query; the route counters count launches of one of
+    them."""
     entries = {e for sigs in K.SIGNATURES.values() for e in sigs}
     launched = entries - {"pk_mont_mul_mma", "pk_segment_max_blocks"}
-    names = {f"pk_{k}" for k in C.kernel_counters()}
+    counters = C.kernel_counters()
+    names = {f"pk_{k}" for k in counters if k not in C.ROUTE_COUNTERS}
     assert names == launched
+    assert set(C.ROUTE_COUNTERS) <= set(counters)
+    assert {f"pk_{k}" for k in C.ROUTE_COUNTERS.values()} <= launched
 
 
 def test_library_path_names_the_source_and_its_hash():
